@@ -1,0 +1,416 @@
+#!/usr/bin/env python3
+"""Drive the okvis_tpu_torch stereo slice on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+1. builds the hand-written CUDA kernels from okvis_tpu_torch/csrc (nvcc);
+2. prints the card's name and power limit (nvidia-smi);
+3. renders a synthetic EuRoC-like stereo sequence of N_FRAMES frames
+   (2 x 752x480, radtan) of a 260-landmark cloud, then for every frame runs
+   Frontend.detect_and_describe_multi (400 keypoints, threshold 40,
+   gravity-aligned) and Frontend.match_stereo on the card, with the kernel
+   launch counters zeroed just before and read just after;
+4. checks the result against ground truth: valid keypoints per camera,
+   stereo matches per frame, and the share of valid triangulations within
+   10 % depth of their nearest true landmark;
+5. profiles a few frames (device time by kernel, device busy share);
+6. holds each kernel to its plain torch version on the card, at the main
+   path's shapes (and Hamming also at 400 x 3200), the CUDA assignment to
+   the CPU one, and the last frame's keypoints and descriptor bits to a CPU
+   run of the same frame;
+7. times each kernel, its plain version and (Hamming) the ±1 float32
+   torch.matmul yardstick with CUDA events, and the per-frame stages with
+   the host clock.
+
+Prints the `kernels` JSON line, and as its last line
+{"ok": true, "device": {...}}. Any failed phase exits non-zero without the
+ok line; so does a run without CUDA or without the okvis_tpu_torch package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# ground-truth floors, set from a CPU run of the same frames (PERF.md)
+MIN_KEYPOINTS = 30  # valid keypoints per camera and frame (CPU run: >= 43)
+MIN_MATCHES = 12  # stereo matches per frame (CPU run: >= 23)
+MIN_DEPTH_SHARE = 0.85  # valid triangulations within 10 % depth (CPU run: 0.955)
+
+N_FRAMES = 20  # frames of the smoke sequence
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
+# Operations a second by class, without FMA. The data sheet's 67 TFLOP/s in
+# float32 counts an FMA as two: 128 lanes an SM and clock. Per SM and clock
+# the CUDA C++ Programming Guide's throughput table (compute capability 9.0)
+# gives 128 float32 adds or multiplies, 64 integer adds, XORs, compares and
+# maxima, 16 population counts. An SM also issues at most 128 thread
+# instructions a clock (4 schedulers x 32 lanes), whatever their class.
+H100_OPS_PER_S = {
+    "issue": 67e12 / 2,
+    "f32": 67e12 / 2,
+    "alu": 67e12 / 2 * 64 / 128,
+    "popc": 67e12 / 2 * 16 / 128,
+}
+# per pixel: Scharr 18, products 3, blur 2 x 63, Harris score 7 (f32);
+# mask 1, 9x9 window max 16, suppression 1 (alu)
+HARRIS_OPS_PER_PIXEL = {"f32": 154, "alu": 18}
+HAMMING_OPS_PER_WORD = {"alu": 2, "popc": 1}  # xor and add; popcount
+
+
+def bound(n_bytes: float, ops: dict) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over their rates, each class alone and all of them over
+    the issue rate."""
+    ops_s = max([sum(ops.values()) / H100_OPS_PER_S["issue"]]
+                + [n / H100_OPS_PER_S[c] for c, n in ops.items()])
+    bytes_s = n_bytes / H100_BYTES_PER_S
+    return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def scenario(n_frames: int):
+    """Trajectory, landmarks and frame sample indices of the smoke sequence
+    (trajectory seed 71, motion scale 0.3, landmark seed 72, radius 4-8 m).
+    Frames start at 0.6 s: before that the camera looks straight up and the
+    gravity extraction angle is ill-conditioned."""
+    from okvis_tpu_torch.datasets.synthetic import make_landmarks, simulate_trajectory
+
+    t0, dt = 0.6, 0.1
+    traj = simulate_trajectory(duration=t0 + dt * n_frames + 0.05, seed=71, motion_scale=0.3)
+    lms = make_landmarks(traj, 260, seed=72, radius=(4.0, 8.0))
+    idx = [int(round((t0 + dt * i) * 200)) for i in range(n_frames)]
+    return traj, lms, idx
+
+
+def build_frontend(device):
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+    from okvis_tpu_torch.frontend.frontend import Frontend, FrontendConfig
+
+    specs, T_SC, intr = euroc_stereo_rig(device=device)
+    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+    rig.compute_overlaps()
+    return Frontend(rig, FrontendConfig(detection_threshold=40.0, max_keypoints=400))
+
+
+def render_frames(frontend, traj, lms, idx):
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.datasets.synthetic import render_world_image
+
+    rig = frontend.rig
+    out = []
+    for i in idx:
+        T_WS = kin.SE3(
+            r=torch.tensor(traj.r[i], dtype=rig.dtype, device=rig.device),
+            q=torch.tensor(traj.q[i], dtype=rig.dtype, device=rig.device),
+        )
+        imgs = [
+            render_world_image(rig.specs[c], rig.intrinsics[c],
+                               kin.compose(T_WS, rig.camera_T_SC(c)), lms)
+            for c in range(rig.num_cameras)
+        ]
+        out.append((T_WS, imgs))
+    return out
+
+
+def run_slice(frontend, frames, lms, sync):
+    """Detect+describe and stereo for every frame; per-frame stats and times."""
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.frontend.frame import MultiFrame
+
+    stats = []
+    for fi, (T_WS, imgs) in enumerate(frames):
+        sync()
+        t0 = time.perf_counter()
+        fds = frontend.detect_and_describe_multi(imgs, T_WS)
+        sync()
+        t1 = time.perf_counter()
+        results = frontend.match_stereo(MultiFrame(fi, 0.1 * fi, fds), T_WS)
+        sync()
+        t2 = time.perf_counter()
+        n_match, n_tri, n_close = 0, 0, 0
+        for ca, _cb, assign, hp, valid, par, _ci in results:
+            ok = valid & (assign >= 0) & ~par
+            n_match += int((assign >= 0).sum())
+            pts = hp[ok, :3] / hp[ok, 3:4]
+            cen = kin.compose(T_WS, frontend.rig.camera_T_SC(ca)).r.cpu().numpy()
+            nn = np.linalg.norm(pts[:, None, :] - lms[None], axis=-1).argmin(axis=1)
+            d_true = np.linalg.norm(lms[nn] - cen, axis=1)
+            rel = np.abs(np.linalg.norm(pts - cen, axis=1) - d_true) / d_true
+            n_tri += int(ok.sum())
+            n_close += int((rel < 0.1).sum())
+        stats.append(dict(
+            keypoints=[f.num_keypoints for f in fds], matches=n_match,
+            triangulated=n_tri, within_10pct=n_close,
+            detect_ms=1e3 * (t1 - t0), stereo_ms=1e3 * (t2 - t1),
+        ))
+    return stats, fds
+
+
+def check_ground_truth(stats):
+    kp_min = min(min(s["keypoints"]) for s in stats)
+    match_min = min(s["matches"] for s in stats)
+    share = sum(s["within_10pct"] for s in stats) / max(1, sum(s["triangulated"] for s in stats))
+    summary = dict(frames=len(stats), min_keypoints=kp_min, min_matches=match_min,
+                   triangulated=sum(s["triangulated"] for s in stats), depth_share=share)
+    print("ground_truth", json.dumps(summary))
+    if kp_min < MIN_KEYPOINTS or match_min < MIN_MATCHES or share < MIN_DEPTH_SHARE:
+        raise SmokeError(f"ground-truth check failed: {summary}")
+    return summary
+
+
+def check_against_cpu(frames, fds_card):
+    """The last frame's detect+describe on the CPU (plain Harris, CPU blur)
+    against the card's: the same valid keypoints, and the share of
+    descriptor bits that differ (the blur sums in another order)."""
+    from okvis_tpu_torch import kinematics as kin
+
+    T_WS, imgs = frames[-1]
+    fds_cpu = build_frontend("cpu").detect_and_describe_multi(
+        imgs, kin.SE3(r=T_WS.r.cpu(), q=T_WS.q.cpu()))
+    flips = bits = 0
+    for c, (fg, fc) in enumerate(zip(fds_card, fds_cpu)):
+        mg, mc = fg.mask_np, fc.mask_np
+        og = np.lexsort((fg.uv_np[mg][:, 1], fg.uv_np[mg][:, 0]))
+        oc = np.lexsort((fc.uv_np[mc][:, 1], fc.uv_np[mc][:, 0]))
+        if mg.sum() != mc.sum() or not np.allclose(fg.uv_np[mg][og], fc.uv_np[mc][oc], atol=1e-3):
+            raise SmokeError(f"camera {c}: card and CPU keypoints differ")
+        dg = fg.descriptors.cpu().numpy().view(np.uint32)[mg][og]
+        dc = fc.descriptors.numpy().view(np.uint32)[mc][oc]
+        flips += int(np.unpackbits((dg ^ dc).view(np.uint8)).sum())
+        bits += dg.size * 32
+    print("card_vs_cpu", json.dumps(dict(descriptor_bit_flips=flips, bits=bits, flip_rate=flips / bits)))
+    if flips > 0.005 * bits:
+        raise SmokeError(f"descriptor bits differ from the CPU run on {flips} of {bits}")
+
+
+def profile_slice(frontend, frames, lms):
+    """torch.profiler over a few frames of the slice: device time by kernel
+    and the device's busy share of the host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_slice(frontend, frames, lms, torch.cuda.synchronize)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print("profile", json.dumps(dict(
+        frames=len(frames), wall_ms=wall_ms, device_ms=device_ms,
+        device_busy_share=device_ms / wall_ms, kernel_launches=sum(e.count for e in kernels),
+        top=[dict(kernel=e.key[:90], device_ms=e.self_device_time_total / 1e3, calls=e.count)
+             for e in kernels[:12]],
+    )))
+
+
+def device_ms(fn, reps: int = 21, inner: int = 10) -> float:
+    """Median over `reps` of the device time of `inner` back-to-back calls,
+    divided by `inner`. A sleep kernel queued first keeps the card busy
+    while the host enqueues, so host overhead does not show."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def check_kernels(images, fds):
+    """Each kernel against its plain version on the card; returns the errors
+    and the tensors the timings reuse."""
+    import torch
+
+    from okvis_tpu_torch.frontend import detection
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming import (
+        hamming_matrix_mxu, hamming_matrix_plain, masked_distance_matrix,
+        mutual_best_assignment)
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    dev = images.device
+    C, H, W = images.shape
+    border = 20
+    inb = detection.border_mask(H, W, border, dev).expand(C, H, W).to(torch.float32).contiguous()
+    raw_k, sup_k = harris_suppressed_cuda(images, inb)
+    raw_p, sup_p = detection.harris_suppressed_plain(images, inb)
+    torch.cuda.synchronize()
+    inner = (slice(None), slice(border, H - border), slice(border, W - border))
+    a, b = raw_k[inner], raw_p[inner]
+    harris_err = float((a - b).abs().max())
+    if not torch.allclose(a, b, rtol=1e-4, atol=1e-3):
+        raise SmokeError(f"Harris raw differs from the plain version: max |d| {harris_err}")
+    if not torch.equal(torch.isfinite(sup_k), torch.isfinite(sup_p)):
+        raise SmokeError("Harris suppressed pattern differs from the plain version")
+
+    # detect_keypoints through the kernel against the plain path on the card
+    kps_k = detection.detect_keypoints(images, threshold=40.0, max_keypoints=400)
+    kps_p = detection.select_keypoints(raw_p, sup_p, 40.0, 400, 4)
+    for c in range(C):
+        mk, mp = kps_k.mask[c], kps_p.mask[c]
+        if int(mk.sum()) != int(mp.sum()):
+            raise SmokeError(f"camera {c}: {int(mk.sum())} kernel keypoints vs {int(mp.sum())} plain")
+        uk = kps_k.uv[c][mk].cpu().numpy()
+        up = kps_p.uv[c][mp].cpu().numpy()
+        uk = uk[np.lexsort((uk[:, 1], uk[:, 0]))]
+        up = up[np.lexsort((up[:, 1], up[:, 0]))]
+        if not np.allclose(uk, up, atol=1e-3):
+            raise SmokeError(f"camera {c}: kernel and plain keypoints differ")
+
+    # Hamming at the stereo shape (400 x 400) and a database shape (400 x 3200)
+    da, db = fds[0].descriptors, fds[1].descriptors
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(
+        rng.integers(0, 2**32, (8 * db.shape[0], 16), dtype=np.uint32).view(np.int32)).to(dev)
+    big[: db.shape[0]] = db
+    ham_err = 0
+    for x, y in ((da, db), (da, big), (da[:397], big[:1001])):
+        dk = hamming_matrix_cuda(x, y)
+        dp = hamming_matrix_plain(x, y)
+        dm = hamming_matrix_mxu(x, y)
+        ham_err = max(ham_err, int((dk - dp).abs().max()))
+        if not (torch.equal(dk, dp) and torch.equal(dk, dm)):
+            raise SmokeError(f"Hamming kernel differs from the plain version at {tuple(dk.shape)}")
+
+    # assignment on CUDA equals the CPU result, with ties and the ratio test
+    dist = masked_distance_matrix(da, db, fds[0].keypoints.mask, fds[1].keypoints.mask)
+    ties = torch.from_numpy(rng.integers(0, 6, (300, 280)).astype(np.int32)).to(dev)
+    for d in (dist, ties):
+        for ratio in (0.0, 0.8):
+            g = mutual_best_assignment(d, 60, distance_ratio=ratio).cpu()
+            h = mutual_best_assignment(d.cpu(), 60, distance_ratio=ratio)
+            if not torch.equal(g, h):
+                raise SmokeError(f"mutual_best_assignment on CUDA differs from CPU (ratio {ratio})")
+    print("kernel_checks", json.dumps(dict(harris_raw_max_abs_err=harris_err, hamming_max_abs_err=ham_err)))
+    return dict(inb=inb, da=da, db=db, big=big, harris_err=harris_err, ham_err=ham_err)
+
+
+def time_kernels(images, chk, launches):
+    import torch
+
+    from okvis_tpu_torch.frontend import detection
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming import hamming_matrix_plain, unpack_to_pm1
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    C, H, W = images.shape
+    inb, da, db, big = chk["inb"], chk["da"], chk["db"], chk["big"]
+    px = C * H * W
+    harris = dict(
+        name="harris_nms", route="cuda", source="okvis_tpu_torch/csrc/harris_nms.cu",
+        replaces="okvis_tpu/ops/detection_pallas.py:121",
+        launches=launches["harris_nms"], max_abs_err=chk["harris_err"],
+        ms=device_ms(lambda: harris_suppressed_cuda(images, inb)),
+        plain_ms=device_ms(lambda: detection.harris_suppressed_plain(images, inb)),
+        library_ms=None, shape=[C, H, W],
+    )
+    harris["bound_ms"], harris["bound_by"] = bound(
+        16 * px, {c: n * px for c, n in HARRIS_OPS_PER_PIXEL.items()})
+
+    def hamming_entry(x, y):
+        na, nb = x.shape[0], y.shape[0]
+        va, vb = unpack_to_pm1(x), unpack_to_pm1(y)
+        bound_ms, bound_by = bound(
+            (na + nb) * 64 + na * nb * 4, {c: n * na * nb * 16 for c, n in HAMMING_OPS_PER_WORD.items()})
+        return dict(
+            ms=device_ms(lambda: hamming_matrix_cuda(x, y)),
+            plain_ms=device_ms(lambda: hamming_matrix_plain(x, y)),
+            library_ms=device_ms(lambda: torch.matmul(va, vb.T)),
+            bound_ms=bound_ms, bound_by=bound_by, shape=[na, nb],
+        )
+
+    hamming = dict(
+        name="hamming_xor_popcount", route="cuda", source="okvis_tpu_torch/csrc/hamming.cu",
+        replaces="okvis_tpu/ops/hamming_pallas.py:40",
+        launches=launches["hamming"], max_abs_err=chk["ham_err"], **hamming_entry(da, db),
+    )
+    hamming_db = hamming_entry(da, big)
+    for k in (harris, hamming):
+        k["bound_us"] = 1e3 * k["bound_ms"]
+    print("hamming_database_shape", json.dumps(hamming_db))
+    return [harris, hamming]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing measured", file=sys.stderr)
+        return 2
+    from okvis_tpu_torch.ops import cuda_lib
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    print("torch", torch.__version__, "cuda", torch.version.cuda, "python", sys.version.split()[0])
+    t0 = time.perf_counter()
+    cuda_lib.load_library()
+    print(f"build_seconds {time.perf_counter() - t0:.2f}")
+    print(cuda_lib.build_log, file=sys.stderr)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+    frontend = build_frontend("cuda")
+    traj, lms, idx = scenario(N_FRAMES)
+    frames = render_frames(frontend, traj, lms, idx)
+    sync = torch.cuda.synchronize
+    run_slice(frontend, frames[:1], lms, sync)  # warm-up: caches, cuBLAS, allocator
+
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    stats, fds = run_slice(frontend, frames, lms, sync)
+    launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+    print("launches", json.dumps(launches))
+    if min(launches.values()) == 0:
+        raise SmokeError(f"a kernel of the main path was never launched: {launches}")
+    check_ground_truth(stats)
+    stages = dict(frames=len(stats))
+    for key in ("detect_ms", "stereo_ms"):
+        vals = [s[key] for s in stats]
+        stages[key] = dict(median=statistics.median(vals), max=max(vals))
+    print("per_frame", json.dumps(stages))
+    profile_slice(frontend, frames[:5], lms)
+
+    images = torch.stack([torch.as_tensor(im, device="cuda") for im in frames[-1][1]]).float()
+    chk = check_kernels(images.contiguous(), fds)
+    check_against_cpu(frames, fds)
+    kernels = time_kernels(images.contiguous(), chk, launches)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,144 @@
+"""Hamming-distance descriptor matching (port of okvis_tpu.ops.hamming).
+
+Descriptors are 512-bit strings packed into 16 words. Inside the port they
+are carried as int32 tensors holding the uint32 bit patterns (torch's uint32
+support on CUDA is partial); ``.view`` converts at the numpy boundary.
+
+Two forms of the distance matrix, which give the same integers:
+
+1. XOR + popcount on the packed words. On CUDA tensors ``hamming_matrix``
+   launches the hand-written kernel (``ops/hamming_cuda.py``,
+   ``csrc/hamming.cu``); on CPU tensors it runs ``hamming_matrix_plain``,
+   the same arithmetic in torch ops. On Hopper this form reads 16x fewer
+   bytes than the ±1 expansion and needs no tensor core.
+2. ``hamming_matrix_mxu``: each descriptor becomes a ±1 vector v and
+   popcount(a XOR b) = (512 - v_a·v_b)/2, one matmul. The JAX package's
+   TPU default (it suits the matrix unit); here a plain version, exact in
+   float32 because every partial sum is an integer below 2^24.
+
+The JAX package's ``use_mxu`` switch is dropped: the device of the tensors
+picks the route, so the port has no option the JAX main path lacks.
+Masked entries of ``masked_distance_matrix`` are MAX_DIST.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DESCRIPTOR_BITS = 512
+DESCRIPTOR_WORDS = DESCRIPTOR_BITS // 32
+MAX_DIST = 10_000
+
+
+def unpack_to_pm1(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(N, W) int32 packed bits -> (N, W*32) ±1 vectors."""
+    n, w = packed.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1  # arithmetic shift; & 1 keeps bit 31 right
+    return bits.reshape(n, w * 32).to(dtype) * 2.0 - 1.0
+
+
+def hamming_matrix_mxu(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Full Hamming distance matrix as one ±1 float32 matmul: (NA, NB) int32."""
+    bits = desc_a.shape[1] * 32
+    dots = unpack_to_pm1(desc_a) @ unpack_to_pm1(desc_b).T
+    return ((bits - dots) * 0.5).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 bit patterns (SWAR bit counting in
+    int64, so no step overflows or shifts in a sign bit)."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_matrix_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """XOR+popcount in torch ops — the plain version of the CUDA kernel and
+    the counterpart of the JAX ``hamming_matrix_xla``: (NA, NB) int32."""
+    x = desc_a[:, None, :] ^ desc_b[None, :, :]  # (NA, NB, W)
+    return popcount32(x).sum(dim=-1).to(torch.int32)
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(NA, NB) int32 Hamming distances: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if desc_a.device.type == "cuda":
+        from .hamming_cuda import hamming_matrix_cuda
+
+        return hamming_matrix_cuda(desc_a, desc_b)
+    if desc_a.device.type == "cpu":
+        return hamming_matrix_plain(desc_a, desc_b)
+    raise ValueError(f"hamming_matrix: unsupported device {desc_a.device}")
+
+
+def masked_distance_matrix(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    mask_a: torch.Tensor,
+    mask_b: torch.Tensor,
+) -> torch.Tensor:
+    """Distance matrix with invalid rows/cols set to MAX_DIST."""
+    d = hamming_matrix(desc_a, desc_b)
+    valid = mask_a[:, None] & mask_b[None, :]
+    return torch.where(valid, d, MAX_DIST)
+
+
+def mutual_best_assignment(
+    dist: torch.Tensor,
+    threshold: int,
+    rounds: int = 3,
+    distance_ratio: float = 0.0,
+) -> torch.Tensor:
+    """One-to-one assignment from a distance matrix by iterative mutual best
+    ("auction"): each round every unmatched A proposes its best remaining B,
+    and each B accepts its best proposer; ties break to the lowest index, as
+    ``argmin`` does. If distance_ratio > 0, Lowe's ratio test best /
+    second-best gates the proposals.
+
+    Returns (NA,) int64: matched B index per A, -1 if unmatched."""
+    NA, NB = dist.shape
+    big = MAX_DIST
+    dev = dist.device
+    if distance_ratio > 0:
+        top2 = torch.topk(dist, 2, dim=1, largest=False).values  # (NA, 2) two smallest
+        ratio_ok = top2[:, 0].to(torch.float32) < distance_ratio * top2[:, 1].to(torch.float32)
+    else:
+        ratio_ok = torch.ones(NA, dtype=torch.bool, device=dev)
+
+    rows = torch.arange(NA, device=dev)
+    match_a = torch.full((NA,), -1, dtype=torch.int64, device=dev)
+    taken_b = torch.zeros(NB, dtype=torch.bool, device=dev)
+    d = dist
+    for _ in range(rounds):
+        best_b = torch.argmin(d, dim=1)  # (NA,) first index on ties
+        best_d = torch.gather(d, 1, best_b[:, None])[:, 0]
+        want = (match_a < 0) & (best_d < threshold) & ratio_ok
+        # B chooses its best proposer: every A's proposal sits in its best
+        # B's column, everything else is big
+        prop_d = torch.where(want, best_d, big)
+        prop_to_b = torch.full((NA, NB), big, dtype=dist.dtype, device=dev)
+        prop_to_b.scatter_(1, best_b[:, None], prop_d[:, None])
+        min_per_b = torch.amin(prop_to_b, dim=0)  # (NB,)
+        winner_a = torch.argmin(prop_to_b, dim=0)  # (NB,)
+        b_accepts = (min_per_b < big) & ~taken_b
+        # additive scatters: duplicate indices must OR, not overwrite
+        a_wins = torch.zeros(NA, dtype=torch.int32, device=dev).index_add_(
+            0, winner_a, b_accepts.to(torch.int32)) > 0
+        a_wins = a_wins & want & (winner_a[best_b] == rows)
+        match_a = torch.where(a_wins, best_b, match_a)
+        taken_b = taken_b | (torch.zeros(NB, dtype=torch.int32, device=dev).index_add_(
+            0, best_b, a_wins.to(torch.int32)) > 0)
+        # matched rows/cols leave the market
+        d = torch.where(a_wins[:, None] | taken_b[None, :], big, d)
+    return match_a
+
+
+def match_descriptors(desc_a, desc_b, mask_a, mask_b, threshold: int = 60, rounds: int = 3
+                      ) -> torch.Tensor:
+    """Distance matrix + one-to-one assignment. threshold=60 is the
+    reference's BRISK matching threshold."""
+    d = masked_distance_matrix(desc_a, desc_b, mask_a, mask_b)
+    return mutual_best_assignment(d, threshold, rounds=rounds)

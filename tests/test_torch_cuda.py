@@ -1,0 +1,83 @@
+"""The hand-written CUDA kernels against their plain torch versions, on the
+card. Marked `cuda`; every test skips where torch sees no CUDA device (the
+CPU parity tests hold the plain versions to the JAX package). Run on a
+machine with an H100:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from okvis_tpu_torch.frontend import detection
+from okvis_tpu_torch.ops.hamming import hamming_matrix_mxu, hamming_matrix_plain, mutual_best_assignment
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("na,nb", [(400, 400), (400, 3200), (1, 1), (17, 33), (0, 5)])
+def test_hamming_kernel_equals_plain(cuda, na, nb):
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    rng = np.random.default_rng(na + nb)
+    a = torch.from_numpy(rng.integers(0, 2**32, (na, 16), dtype=np.uint32).view(np.int32)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 2**32, (nb, 16), dtype=np.uint32).view(np.int32)).to(cuda)
+    before = hamming_matrix_cuda.launches
+    got = hamming_matrix_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hamming_matrix_plain(a, b))
+    if na and nb:
+        assert torch.equal(got, hamming_matrix_mxu(a, b))
+        assert hamming_matrix_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("C,H,W,nms_radius",
+                         [(2, 480, 752, 4), (1, 96, 128, 4), (3, 61, 83, 4), (2, 240, 376, 2)])
+def test_harris_kernel_matches_plain(cuda, C, H, W, nms_radius):
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+
+    rng = np.random.default_rng(C * H + W)
+    img = torch.from_numpy(rng.uniform(0, 255, (C, H, W)).astype(np.float32)).to(cuda)
+    border = 20
+    inb = detection.border_mask(H, W, border, cuda).expand(C, H, W).float().contiguous()
+    raw_k, sup_k = harris_suppressed_cuda(img, inb, nms_radius=nms_radius)
+    raw_p, sup_p = detection.harris_suppressed_plain(img, inb, nms_radius=nms_radius)
+    torch.cuda.synchronize()
+    sl = (slice(None), slice(border, H - border), slice(border, W - border))
+    torch.testing.assert_close(raw_k[sl], raw_p[sl], rtol=1e-4, atol=1e-3)
+    assert torch.equal(torch.isfinite(sup_k), torch.isfinite(sup_p))
+
+
+def test_detect_keypoints_kernel_path_matches_plain_path(cuda):
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 240, 376)).astype(np.float32)).to(cuda)
+    kk = detection.detect_keypoints(img, threshold=1.0, max_keypoints=128)
+    inb = detection.border_mask(240, 376, 20, cuda).expand(2, 240, 376).float().contiguous()
+    kp = detection.select_keypoints(*detection.harris_suppressed_plain(img, inb), 1.0, 128, 4)
+    assert torch.equal(kk.mask, kp.mask)
+    torch.testing.assert_close(kk.uv[kk.mask], kp.uv[kp.mask], rtol=0, atol=1e-3)
+
+
+def test_harris_kernel_rejects_radii_it_was_not_built_for(cuda):
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+
+    img = torch.zeros(1, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="nms radius"):
+        harris_suppressed_cuda(img, torch.ones_like(img), nms_radius=3)
+
+
+def test_assignment_on_cuda_equals_cpu(cuda):
+    rng = np.random.default_rng(4)
+    d = torch.from_numpy(rng.integers(0, 6, (300, 280)).astype(np.int32))
+    for ratio in (0.0, 0.8):
+        want = mutual_best_assignment(d, 4, distance_ratio=ratio)
+        got = mutual_best_assignment(d.to(cuda), 4, distance_ratio=ratio).cpu()
+        assert torch.equal(got, want)

@@ -1,0 +1,136 @@
+"""okvis_tpu_torch stands alone: it imports neither JAX nor okvis_tpu, its
+entry points refuse to fall back to the CPU when no card is present, and its
+kernel library refuses to load without nvcc."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import okvis_tpu_torch
+from okvis_tpu_torch.ops import cuda_lib
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = Path(okvis_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "okvis_tpu")
+
+
+def _is_forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_loads_no_jax_or_okvis_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import okvis_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'okvis_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "print(len(names))\n"
+        "print(' '.join(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=120, check=True).stdout.splitlines()
+    assert int(out[0]) >= 20  # every module of the slice was imported
+    loaded = out[1].split()
+    assert "okvis_tpu_torch.frontend.frontend" in loaded
+    bad = [m for m in loaded if _is_forbidden(m)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")] + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_okvis_tpu(path):
+    """Also covers imports inside functions, which a plain import misses."""
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_is_forbidden(n) for n in names), (path, names)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _rig_from_numpy():
+    from okvis_tpu_torch.convert import rig_from_numpy
+
+    return rig_from_numpy([(752, 480, "radtan")], np.zeros((1, 3)), np.asarray([[0, 0, 0, 1.0]]),
+                          [np.asarray([461.4, 460.2, 363.0, 248.1, -0.28, 0.07, 2e-4, 1.8e-5])])
+
+
+def _entry_points():
+    from okvis_tpu_torch import kinematics, resolve_device
+    from okvis_tpu_torch.cameras import pinhole
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+
+    return {
+        "resolve_device": resolve_device,
+        "euroc_stereo_rig": euroc_stereo_rig,
+        "rig_from_numpy": _rig_from_numpy,
+        "se3_identity": kinematics.identity,
+        "intrinsics_vector": lambda: pinhole.intrinsics_vector(1.0, 1.0, 0.0, 0.0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_without_device_raises_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_entry_point_runs_on_cpu_when_asked(no_cuda):
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+    from okvis_tpu_torch.frontend.frontend import Frontend
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    assert T_SC.r.device.type == "cpu" and intr[0].dtype == torch.float64
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+
+    Frontend(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr))
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+
+
+def test_kernel_library_refuses_to_load_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(cuda_lib, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_lib.load_library()
+    assert not (tmp_path / "build").exists()
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from okvis_tpu_torch.ops.hamming import hamming_matrix
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    d = torch.zeros((4, 16), dtype=torch.int32)
+    before = hamming_matrix_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        hamming_matrix_cuda(d, d)
+    assert hamming_matrix_cuda.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        hamming_matrix(d.to("meta"), d.to("meta"))
+
+
+@pytest.mark.parametrize("name,replaces", [
+    ("harris_nms.cu", "okvis_tpu/ops/detection_pallas.py::harris_suppressed_pallas"),
+    ("hamming.cu", "okvis_tpu/ops/hamming_pallas.py::hamming_matrix_pallas"),
+])
+def test_kernel_sources_name_the_tpu_kernel_they_replace(name, replaces):
+    head = (PKG / "csrc" / name).read_text().split("#include")[0]
+    assert f"Replaces the TPU kernel {replaces}" in " ".join(head.split()).replace("// ", "")
+    assert "What bounds it on the H100" in head and "Design:" in head
