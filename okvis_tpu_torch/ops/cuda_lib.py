@@ -28,7 +28,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the toolkit's standard install prefix
 
 _lib = None
-build_log = ""  # nvcc's output of the last build in this process (ptxas register/smem report)
+build_log = ""  # nvcc's output (ptxas register/smem report) of the build that made the library
 
 
 def find_nvcc() -> str:
@@ -56,7 +56,9 @@ def build_library() -> Path:
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = _digest(sources)
     lib_path = BUILD_DIR / f"libokvis_tpu_torch_{digest}.so"
+    log_path = lib_path.with_suffix(".log")  # the build's nvcc output, kept beside it
     if lib_path.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -87,6 +89,7 @@ def build_library() -> Path:
         obj.unlink(missing_ok=True)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    log_path.write_text(build_log)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -101,6 +104,8 @@ def load_library() -> ctypes.CDLL:
         lib.okvis_hamming_matrix.restype = i32
         lib.okvis_harris_nms.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, i32, f32, ptr]
         lib.okvis_harris_nms.restype = i32
+        lib.okvis_harris_nms_shared_bytes.argtypes = [i32, i32]
+        lib.okvis_harris_nms_shared_bytes.restype = i32
         lib.okvis_cuda_error_string.argtypes = [i32]
         lib.okvis_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

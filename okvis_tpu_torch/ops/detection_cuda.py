@@ -57,6 +57,8 @@ def harris_suppressed_cuda(
             f"harris_suppressed_cuda: (blur radius, nms radius) ({radius}, {nms_radius}) "
             f"not among the compiled {KERNEL_RADII}")
     C, H, W = img.shape
+    if H * W >= 2**31:
+        raise ValueError(f"harris_suppressed_cuda: {H} x {W} images exceed the kernel's 32-bit offsets")
     raw = torch.empty_like(img)
     sup = torch.empty_like(img)
     if img.numel() == 0:

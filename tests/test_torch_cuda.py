@@ -39,21 +39,50 @@ def test_hamming_kernel_equals_plain(cuda, na, nb):
         assert hamming_matrix_cuda.launches == before + 1
 
 
-@pytest.mark.parametrize("C,H,W,nms_radius",
-                         [(2, 480, 752, 4), (1, 96, 128, 4), (3, 61, 83, 4), (2, 240, 376, 2)])
-def test_harris_kernel_matches_plain(cuda, C, H, W, nms_radius):
+def _harris_both(img, inb, nms_radius):
+    """Kernel and plain version on the same card tensors; the kernel is
+    launched exactly once."""
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
 
-    rng = np.random.default_rng(C * H + W)
-    img = torch.from_numpy(rng.uniform(0, 255, (C, H, W)).astype(np.float32)).to(cuda)
-    border = 20
-    inb = detection.border_mask(H, W, border, cuda).expand(C, H, W).float().contiguous()
+    before = harris_suppressed_cuda.launches
     raw_k, sup_k = harris_suppressed_cuda(img, inb, nms_radius=nms_radius)
     raw_p, sup_p = detection.harris_suppressed_plain(img, inb, nms_radius=nms_radius)
     torch.cuda.synchronize()
-    sl = (slice(None), slice(border, H - border), slice(border, W - border))
-    torch.testing.assert_close(raw_k[sl], raw_p[sl], rtol=1e-4, atol=1e-3)
+    assert harris_suppressed_cuda.launches == before + 1
+    return raw_k, sup_k, raw_p, sup_p
+
+
+# (2, 480, 752) is the main path's shape; (1, 37, 41) and (2, 481, 753) divide
+# the kernel's 64 x 44 tile in neither direction
+@pytest.mark.parametrize("C,H,W,nms_radius,border",
+                         [(2, 480, 752, 4, 20), (1, 96, 128, 4, 20), (3, 61, 83, 4, 20), (2, 240, 376, 2, 20),
+                          (1, 37, 41, 4, 10), (2, 481, 753, 4, 20), (1, 37, 41, 2, 10)])
+def test_harris_kernel_matches_plain(cuda, C, H, W, nms_radius, border):
+    rng = np.random.default_rng(C * H + W)
+    img = torch.from_numpy(rng.uniform(0, 255, (C, H, W)).astype(np.float32)).to(cuda)
+    inb = detection.border_mask(H, W, border, cuda).expand(C, H, W).float().contiguous()
+    raw_k, sup_k, raw_p, sup_p = _harris_both(img, inb, nms_radius)
+    # bit for bit from 10 px inside the image, where both read the same pixels
+    sl = (slice(None), slice(10, H - 10), slice(10, W - 10))
+    assert torch.equal(raw_k[sl], raw_p[sl])
     assert torch.equal(torch.isfinite(sup_k), torch.isfinite(sup_p))
+    assert torch.equal(sup_k[torch.isfinite(sup_p)], sup_p[torch.isfinite(sup_p)])
+
+
+def test_harris_kernel_keeps_plateau_maxima(cuda):
+    """Constant 16 x 16 blocks: inside a block the response is exactly 0 over
+    whole windows, and every pixel of such a plateau is its window's max."""
+    rng = np.random.default_rng(6)
+    levels = rng.integers(0, 4, (2, 10, 16)).astype(np.float32) * 60.0
+    img = torch.from_numpy(np.kron(levels, np.ones((16, 16), np.float32))).to(cuda).contiguous()
+    C, H, W = img.shape
+    inb = detection.border_mask(H, W, 20, cuda).expand(C, H, W).float().contiguous()
+    raw_k, sup_k, raw_p, sup_p = _harris_both(img, inb, 4)
+    sl = (slice(None), slice(10, H - 10), slice(10, W - 10))
+    assert torch.equal(raw_k[sl], raw_p[sl])
+    assert torch.equal(torch.isfinite(sup_k), torch.isfinite(sup_p))
+    flat = torch.isfinite(sup_p) & (raw_p == 0)
+    assert int(flat.sum()) > 100  # plateau survivors exist, and the kernel kept them all
 
 
 def test_detect_keypoints_kernel_path_matches_plain_path(cuda):

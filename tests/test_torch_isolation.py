@@ -113,6 +113,19 @@ def test_kernel_library_refuses_to_load_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_cached_kernel_library_keeps_its_build_log(monkeypatch, tmp_path):
+    """A library found already built comes with the nvcc output of the build
+    that made it: chip_smoke.py reads registers and spills from it."""
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib, "build_log", "")
+    digest = cuda_lib._digest(sorted(cuda_lib.SRC_DIR.glob("*.cu")))
+    lib = tmp_path / f"libokvis_tpu_torch_{digest}.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 87 registers")
+    assert cuda_lib.build_library() == lib
+    assert cuda_lib.build_log == "ptxas info    : Used 87 registers"
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     from okvis_tpu_torch.ops.hamming import hamming_matrix
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
