@@ -16,13 +16,16 @@
    10 % depth of their nearest true landmark;
 5. profiles a few frames (device time by kernel, device busy share);
 6. holds each kernel to its plain torch version on the card, at the main
-   path's shapes (and Hamming also at 400 x 3200): Harris raw bit for bit
-   from 10 px inside the image and the same suppressed pattern, Hamming
-   exactly; the CUDA assignment to the CPU one; and the last frame's
+   path's shapes: Harris raw bit for bit from 10 px inside the image and
+   the same suppressed pattern; Hamming exactly, masked and unmasked, at the
+   stereo pair (400 x 400), the association batch (8, 400, 400) with B
+   broadcast, a database shape (400 x 3200) and a ragged (397 x 1001), one
+   launch a call; the CUDA assignment to the CPU one; and the last frame's
    keypoints and descriptor bits to a CPU run of the same frame;
-7. times each kernel, its plain version and (Hamming) the ±1 float32
-   torch.matmul yardstick with CUDA events, a one-element torch add as the
-   floor of a launch, and the per-frame stages with the host clock.
+7. times each kernel, its plain version and the yardstick (Hamming: the
+   ±1 float32 torch.matmul, torch.bmm for the batch, and the whole
+   masked_distance_matrix call) with CUDA events, a one-element torch add as
+   the floor of a launch, and the per-frame stages with the host clock.
 
 Prints the `kernels` JSON line, and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
@@ -54,24 +57,34 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # gives 128 float32 adds or multiplies, 64 integer adds, XORs, compares and
 # maxima, 16 population counts. An SM also issues at most 128 thread
 # instructions a clock (4 schedulers x 32 lanes), whatever their class.
+# The tensor cores' dense int8 rate is the data sheet's 1,979 TOP/s.
 H100_OPS_PER_S = {
     "issue": 67e12 / 2,
     "f32": 67e12 / 2,
     "alu": 67e12 / 2 * 64 / 128,
     "popc": 67e12 / 2 * 16 / 128,
+    "int8_mma": 1979e12,
 }
 # per pixel: Scharr 18, products 3, blur 2 x 63, Harris score 7 (f32);
 # mask 1, 9x9 window max 16, suppression 1 (alu)
 HARRIS_OPS_PER_PIXEL = {"f32": 154, "alu": 18}
-HAMMING_OPS_PER_WORD = {"alu": 2, "popc": 1}  # xor and add; popcount
+# Two routes to a Hamming distance of 512 bits: 16 words of xor, popcount and
+# add on the CUDA cores, or 512 ±1 int8 multiply-adds (2 operations each) on
+# the tensor cores
+HAMMING_ROUTES = ({"alu": 2 * 16, "popc": 16}, {"int8_mma": 2 * 512})
 
 
-def bound(n_bytes: float, ops: dict) -> tuple:
+def route_seconds(ops: dict) -> float:
+    """One route's operations over their rates: each class alone, and the
+    CUDA cores' classes together over the issue rate."""
+    core = sum(n for c, n in ops.items() if c != "int8_mma")
+    return max([core / H100_OPS_PER_S["issue"]] + [n / H100_OPS_PER_S[c] for c, n in ops.items()])
+
+
+def bound(n_bytes: float, *routes: dict) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
-    the operations over their rates, each class alone and all of them over
-    the issue rate."""
-    ops_s = max([sum(ops.values()) / H100_OPS_PER_S["issue"]]
-                + [n / H100_OPS_PER_S[c] for c, n in ops.items()])
+    the least time of the routes the card offers for the operations."""
+    ops_s = min(route_seconds(r) for r in routes)
     bytes_s = n_bytes / H100_BYTES_PER_S
     return 1e3 * max(bytes_s, ops_s), "bytes" if bytes_s >= ops_s else "operations"
 
@@ -243,6 +256,33 @@ def device_ms(fn, reps: int = 21, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def hamming_cases(fds, dev) -> dict:
+    """(desc_a, desc_b, mask_a, mask_b) of each Hamming shape: the stereo
+    pair of the last frame (400 x 400); the association's batch, P = 4
+    sources x C = 2 cameras against one frame's B, broadcast (8, 400, 400);
+    a database of 3200 (the frame's B and random descriptors); a ragged
+    397 x 1001. Random parts from seed 5, masks 90 % true."""
+    import torch
+
+    da, db = fds[0].descriptors, fds[1].descriptors
+    ma, mb = fds[0].keypoints.mask, fds[1].keypoints.mask
+    k = db.shape[0]
+    rng = np.random.default_rng(5)
+    rand = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 2**32, s, dtype=np.uint32).view(np.int32)).to(dev)
+    valid = lambda *s: torch.from_numpy(rng.uniform(size=s) < 0.9).to(dev)  # noqa: E731
+    big, big_mask = rand(8 * k, 16), valid(8 * k)
+    big[:k], big_mask[:k] = db, mb
+    src, src_mask = rand(8, k, 16), valid(8, k)
+    src[0], src_mask[0] = da, ma
+    return {
+        "400x400": (da, db, ma, mb),
+        "8x400x400": (src, db[None], src_mask, mb[None]),
+        "400x3200": (da, big, ma, big_mask),
+        "397x1001": (da[:397], big[:1001], ma[:397], big_mask[:1001]),
+    }
+
+
 def check_kernels(images, fds):
     """Each kernel against its plain version on the card; returns the errors
     and the tensors the timings reuse."""
@@ -251,7 +291,7 @@ def check_kernels(images, fds):
     from okvis_tpu_torch.frontend import detection
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
     from okvis_tpu_torch.ops.hamming import (
-        hamming_matrix_mxu, hamming_matrix_plain, masked_distance_matrix,
+        hamming_matrix_mxu, masked_distance_matrix, masked_distance_matrix_plain,
         mutual_best_assignment)
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
 
@@ -285,23 +325,26 @@ def check_kernels(images, fds):
         if not np.allclose(uk, up, atol=1e-3):
             raise SmokeError(f"camera {c}: kernel and plain keypoints differ")
 
-    # Hamming at the stereo shape (400 x 400) and a database shape (400 x 3200)
-    da, db = fds[0].descriptors, fds[1].descriptors
-    rng = np.random.default_rng(5)
-    big = torch.from_numpy(
-        rng.integers(0, 2**32, (8 * db.shape[0], 16), dtype=np.uint32).view(np.int32)).to(dev)
-    big[: db.shape[0]] = db
+    # Hamming: every shape masked and unmasked, one launch a call
+    ham = hamming_cases(fds, dev)
     ham_err = 0
-    for x, y in ((da, db), (da, big), (da[:397], big[:1001])):
-        dk = hamming_matrix_cuda(x, y)
-        dp = hamming_matrix_plain(x, y)
-        dm = hamming_matrix_mxu(x, y)
-        ham_err = max(ham_err, int((dk - dp).abs().max()))
-        if not (torch.equal(dk, dp) and torch.equal(dk, dm)):
-            raise SmokeError(f"Hamming kernel differs from the plain version at {tuple(dk.shape)}")
+    for name, args in ham.items():
+        for masks in (args[2:], (None, None)):
+            x = (*args[:2], *masks)
+            before = hamming_matrix_cuda.launches
+            dk = hamming_matrix_cuda(*x)
+            if hamming_matrix_cuda.launches != before + 1:
+                raise SmokeError(f"Hamming {name}: {hamming_matrix_cuda.launches - before} launches")
+            dp = masked_distance_matrix_plain(*x)
+            ham_err = max(ham_err, int((dk - dp).abs().max()))
+            if not torch.equal(dk, dp):
+                raise SmokeError(f"Hamming kernel differs from the plain version at {name} {tuple(dk.shape)}")
+            if dk.dim() == 2 and masks[0] is None and not torch.equal(dk, hamming_matrix_mxu(*x[:2])):
+                raise SmokeError(f"Hamming kernel differs from the ±1 matmul form at {name}")
 
     # assignment on CUDA equals the CPU result, with ties and the ratio test
-    dist = masked_distance_matrix(da, db, fds[0].keypoints.mask, fds[1].keypoints.mask)
+    dist = masked_distance_matrix(*ham["400x400"])
+    rng = np.random.default_rng(5)
     ties = torch.from_numpy(rng.integers(0, 6, (300, 280)).astype(np.int32)).to(dev)
     for d in (dist, ties):
         for ratio in (0.0, 0.8):
@@ -310,7 +353,7 @@ def check_kernels(images, fds):
             if not torch.equal(g, h):
                 raise SmokeError(f"mutual_best_assignment on CUDA differs from CPU (ratio {ratio})")
     print("kernel_checks", json.dumps(dict(harris_raw_max_abs_err=harris_err, hamming_max_abs_err=ham_err)))
-    return dict(inb=inb, da=da, db=db, big=big, harris_err=harris_err, ham_err=ham_err)
+    return dict(inb=inb, ham=ham, harris_err=harris_err, ham_err=ham_err)
 
 
 def time_kernels(images, chk, launches):
@@ -318,11 +361,12 @@ def time_kernels(images, chk, launches):
 
     from okvis_tpu_torch.frontend import detection
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
-    from okvis_tpu_torch.ops.hamming import hamming_matrix_plain, unpack_to_pm1
+    from okvis_tpu_torch.ops.hamming import (
+        masked_distance_matrix, masked_distance_matrix_plain, unpack_to_pm1)
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
 
     C, H, W = images.shape
-    inb, da, db, big = chk["inb"], chk["da"], chk["db"], chk["big"]
+    inb = chk["inb"]
     px = C * H * W
     harris = dict(
         name="harris_nms", route="cuda", source="okvis_tpu_torch/csrc/harris_nms.cu",
@@ -335,27 +379,32 @@ def time_kernels(images, chk, launches):
     harris["bound_ms"], harris["bound_by"] = bound(
         16 * px, {c: n * px for c, n in HARRIS_OPS_PER_PIXEL.items()})
 
-    def hamming_entry(x, y):
-        na, nb = x.shape[0], y.shape[0]
-        va, vb = unpack_to_pm1(x), unpack_to_pm1(y)
-        bound_ms, bound_by = bound(
-            (na + nb) * 64 + na * nb * 4, {c: n * na * nb * 16 for c, n in HAMMING_OPS_PER_WORD.items()})
+    def hamming_entry(a, b, ma, mb):
+        g, na, nb = max(a.shape[0], b.shape[0]) if a.dim() == 3 else 1, a.shape[-2], b.shape[-2]
+        n_bytes = (a.numel() + b.numel()) * 4 + ma.numel() + mb.numel() + g * na * nb * 4
+        bound_ms, bound_by = bound(n_bytes, *({c: n * g * na * nb for c, n in r.items()}
+                                              for r in HAMMING_ROUTES))
+        va, vb = (unpack_to_pm1(t.reshape(-1, 16)).reshape(*t.shape[:-1], 512) for t in (a, b))
+        library = ((lambda: torch.bmm(va, vb.expand(g, -1, -1).transpose(1, 2))) if a.dim() == 3
+                   else (lambda: torch.matmul(va, vb.T)))
         return dict(
-            ms=device_ms(lambda: hamming_matrix_cuda(x, y)),
-            plain_ms=device_ms(lambda: hamming_matrix_plain(x, y)),
-            library_ms=device_ms(lambda: torch.matmul(va, vb.T)),
-            bound_ms=bound_ms, bound_by=bound_by, shape=[na, nb],
+            shape=[g, na, nb],
+            ms=device_ms(lambda: hamming_matrix_cuda(a, b, ma, mb)),
+            unmasked_ms=device_ms(lambda: hamming_matrix_cuda(a, b)),
+            call_ms=device_ms(lambda: masked_distance_matrix(a, b, ma, mb)),
+            plain_ms=device_ms(lambda: masked_distance_matrix_plain(a, b, ma, mb)),
+            library_ms=device_ms(library), bound_ms=bound_ms, bound_by=bound_by,
         )
 
+    shapes = {name: hamming_entry(*args) for name, args in chk["ham"].items()}
     hamming = dict(
-        name="hamming_xor_popcount", route="cuda", source="okvis_tpu_torch/csrc/hamming.cu",
+        name="hamming_masked_mma", route="cuda", source="okvis_tpu_torch/csrc/hamming.cu",
         replaces="okvis_tpu/ops/hamming_pallas.py:40",
-        launches=launches["hamming"], max_abs_err=chk["ham_err"], **hamming_entry(da, db),
+        launches=launches["hamming"], max_abs_err=chk["ham_err"], **shapes["400x400"],
     )
-    hamming_db = hamming_entry(da, big)
     for k in (harris, hamming):
         k["bound_us"] = 1e3 * k["bound_ms"]
-    print("hamming_database_shape", json.dumps(hamming_db))
+    print("hamming_shapes", json.dumps(shapes))
     one = torch.zeros(1, device=images.device)
     print("launch_floor", json.dumps(dict(
         us=1e3 * device_ms(lambda: one.add_(1.0)), what="a one-element torch add, back to back")))
@@ -364,19 +413,21 @@ def time_kernels(images, chk, launches):
 
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
-    compiled, from the build log (-Xptxas -v), and the Harris kernel's
-    dynamic shared memory a block, from the library."""
+    compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
+    its integer template arguments, and the Harris kernel's dynamic shared
+    memory a block, from the library."""
     out = {}
     for part in build_log.split("Compiling entry function '")[1:]:
         mangled = part.split("'", 1)[0]
-        name = re.search(r"\d+([a-z_]+_kernel)", mangled)
-        radii = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
-        key = (name.group(1) if name else mangled) + (f"<{radii.group(1)},{radii.group(2)}>" if radii else "")
+        found = re.search(r"\d+([a-z_]+_kernel)", mangled)
+        name = found.group(1) if found else mangled
+        args = re.findall(r"L[ib](\d+)E", mangled)  # int and bool template arguments
+        key = name + (f"<{','.join(args)}>" if args else "")
         num = lambda pat: int(m.group(1)) if (m := re.search(pat, part)) else 0  # noqa: E731
         out[key] = dict(registers=num(r"Used (\d+) registers"), spill_stores=num(r"(\d+) bytes spill stores"),
                         spill_loads=num(r"(\d+) bytes spill loads"), static_smem=num(r"(\d+) bytes smem"))
-        if radii:
-            out[key]["dynamic_smem"] = lib.okvis_harris_nms_shared_bytes(int(radii.group(1)), int(radii.group(2)))
+        if name == "harris_nms_kernel":  # template arguments: the blur and NMS radii
+            out[key]["dynamic_smem"] = lib.okvis_harris_nms_shared_bytes(int(args[0]), int(args[1]))
     return out
 
 

@@ -100,7 +100,7 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.okvis_hamming_matrix.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+        lib.okvis_hamming_matrix.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
         lib.okvis_hamming_matrix.restype = i32
         lib.okvis_harris_nms.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, i32, i32, f32, ptr]
         lib.okvis_harris_nms.restype = i32

@@ -6,11 +6,11 @@ support on CUDA is partial); ``.view`` converts at the numpy boundary.
 
 Two forms of the distance matrix, which give the same integers:
 
-1. XOR + popcount on the packed words. On CUDA tensors ``hamming_matrix``
-   launches the hand-written kernel (``ops/hamming_cuda.py``,
-   ``csrc/hamming.cu``); on CPU tensors it runs ``hamming_matrix_plain``,
-   the same arithmetic in torch ops. On Hopper this form reads 16x fewer
-   bytes than the ±1 expansion and needs no tensor core.
+1. XOR + popcount on the packed words: ``hamming_matrix_plain`` in torch ops,
+   the plain version the CPU runs. On CUDA tensors ``masked_distance_matrix``
+   and ``hamming_matrix`` launch the hand-written kernel instead
+   (``ops/hamming_cuda.py``, ``csrc/hamming.cu``), which takes the same
+   popcounts from the tensor cores' one-bit AND+popc product.
 2. ``hamming_matrix_mxu``: each descriptor becomes a ±1 vector v and
    popcount(a XOR b) = (512 - v_a·v_b)/2, one matmul. The JAX package's
    TPU default (it suits the matrix unit); here a plain version, exact in
@@ -18,7 +18,9 @@ Two forms of the distance matrix, which give the same integers:
 
 The JAX package's ``use_mxu`` switch is dropped: the device of the tensors
 picks the route, so the port has no option the JAX main path lacks.
-Masked entries of ``masked_distance_matrix`` are MAX_DIST.
+Masked entries of ``masked_distance_matrix`` are MAX_DIST. It takes a
+leading batch (the JAX package's ``jax.vmap`` of it), in which a batch of 1
+broadcasts, and makes one kernel launch on the card whatever the batch.
 """
 
 from __future__ import annotations
@@ -56,34 +58,49 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix_plain(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """XOR+popcount in torch ops — the plain version of the CUDA kernel and
-    the counterpart of the JAX ``hamming_matrix_xla``: (NA, NB) int32."""
-    x = desc_a[:, None, :] ^ desc_b[None, :, :]  # (NA, NB, W)
+    """XOR+popcount in torch ops — the counterpart of the JAX
+    ``hamming_matrix_xla``: (..., NA, NB) int32 from (..., NA, 16) and
+    (..., NB, 16) descriptors, leading batches broadcast."""
+    x = desc_a[..., :, None, :] ^ desc_b[..., None, :, :]  # (..., NA, NB, W)
     return popcount32(x).sum(dim=-1).to(torch.int32)
 
 
-def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(NA, NB) int32 Hamming distances: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if desc_a.device.type == "cuda":
-        from .hamming_cuda import hamming_matrix_cuda
-
-        return hamming_matrix_cuda(desc_a, desc_b)
-    if desc_a.device.type == "cpu":
-        return hamming_matrix_plain(desc_a, desc_b)
-    raise ValueError(f"hamming_matrix: unsupported device {desc_a.device}")
+def masked_distance_matrix_plain(desc_a, desc_b, mask_a=None, mask_b=None) -> torch.Tensor:
+    """The plain version of the CUDA kernel: ``hamming_matrix_plain`` with
+    MAX_DIST wherever mask_a[..., i] & mask_b[..., j] is false (None: all
+    true)."""
+    d = hamming_matrix_plain(desc_a, desc_b)
+    valid = torch.ones((), dtype=torch.bool, device=d.device)
+    if mask_a is not None:
+        valid = valid & mask_a[..., :, None]
+    if mask_b is not None:
+        valid = valid & mask_b[..., None, :]
+    return torch.where(valid, d, MAX_DIST)
 
 
 def masked_distance_matrix(
     desc_a: torch.Tensor,
     desc_b: torch.Tensor,
-    mask_a: torch.Tensor,
-    mask_b: torch.Tensor,
+    mask_a: torch.Tensor | None = None,
+    mask_b: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Distance matrix with invalid rows/cols set to MAX_DIST."""
-    d = hamming_matrix(desc_a, desc_b)
-    valid = mask_a[:, None] & mask_b[None, :]
-    return torch.where(valid, d, MAX_DIST)
+    """Distance matrix with invalid rows/cols set to MAX_DIST: (NA, NB) from
+    (NA, 16) descriptors and (NA,) masks, or (G, NA, NB) from (G, NA, 16) and
+    (G, NA) (a batch of 1 broadcasts). One kernel launch for CUDA tensors,
+    the plain version for CPU tensors."""
+    if desc_a.device.type == "cuda":
+        from .hamming_cuda import hamming_matrix_cuda
+
+        return hamming_matrix_cuda(desc_a, desc_b, mask_a, mask_b)
+    if desc_a.device.type == "cpu":
+        return masked_distance_matrix_plain(desc_a, desc_b, mask_a, mask_b)
+    raise ValueError(f"masked_distance_matrix: unsupported device {desc_a.device}")
+
+
+def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(NA, NB) int32 Hamming distances, no mask: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    return masked_distance_matrix(desc_a, desc_b)
 
 
 def mutual_best_assignment(

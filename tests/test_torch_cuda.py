@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from okvis_tpu_torch.frontend import detection
-from okvis_tpu_torch.ops.hamming import hamming_matrix_mxu, hamming_matrix_plain, mutual_best_assignment
+from okvis_tpu_torch.ops.hamming import (
+    MAX_DIST, hamming_matrix_mxu, hamming_matrix_plain, masked_distance_matrix,
+    masked_distance_matrix_plain, mutual_best_assignment)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +39,88 @@ def test_hamming_kernel_equals_plain(cuda, na, nb):
     if na and nb:
         assert torch.equal(got, hamming_matrix_mxu(a, b))
         assert hamming_matrix_cuda.launches == before + 1
+
+
+def _random_case(cuda, seed, g, na, nb, gb, masked):
+    """(G, NA, 16) A, (GB, NB, 16) B with bit 31 set somewhere, and random
+    bool masks of the same batches (None where unmasked)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, (g, na, 16), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (gb, nb, 16), dtype=np.uint32)
+    if na:
+        a[:, 0, 0] = 0x80000001
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    ma = t(rng.uniform(size=(g, na)) > 0.1) if masked else None
+    mb = t(rng.uniform(size=(gb, nb)) > 0.1) if masked else None
+    return t(a.view(np.int32)), t(b.view(np.int32)), ma, mb
+
+
+# (G, NA, NB, batch of B, masked): the stereo pair, the association batch
+# (P = 4 sources x C = 2 cameras, one frame's B broadcast), a database shape,
+# ragged shapes that divide the 32 x 64 block tile in neither direction, and
+# empty ones
+@pytest.mark.parametrize("g,na,nb,gb,masked", [
+    (1, 400, 400, 1, True), (8, 400, 400, 1, True), (8, 400, 400, 8, False),
+    (1, 400, 3200, 1, False), (1, 400, 3200, 1, True), (3, 397, 1001, 3, True),
+    (2, 1, 1, 1, True), (1, 17, 33, 1, True), (2, 0, 5, 1, True), (2, 5, 0, 2, True)])
+def test_masked_hamming_kernel_equals_plain(cuda, g, na, nb, gb, masked):
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    a, b, ma, mb = _random_case(cuda, g * 1000 + na + nb, g, na, nb, gb, masked)
+    before = hamming_matrix_cuda.launches
+    got = hamming_matrix_cuda(a, b, ma, mb)
+    torch.cuda.synchronize()
+    assert got.shape == (g, na, nb) and got.dtype == torch.int32
+    assert torch.equal(got, masked_distance_matrix_plain(a, b, ma, mb))
+    assert hamming_matrix_cuda.launches == before + (1 if na and nb else 0)
+
+
+def test_masked_distance_matrix_is_one_kernel(cuda):
+    """The stereo call (2-D, masked) and the association call (batch 8, B
+    broadcast): one launch each, and the profiler sees one kernel and no
+    other device work; all-false masks give MAX_DIST everywhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    a, b, ma, mb = _random_case(cuda, 9, 8, 400, 400, 1, True)
+    stereo = (a[0], b[0], ma[0], mb[0])
+    for args in (stereo, (a, b, ma, mb)):
+        masked_distance_matrix(*args)  # built and warm
+        torch.cuda.synchronize()
+        before = hamming_matrix_cuda.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = masked_distance_matrix(*args)
+            torch.cuda.synchronize()
+        assert hamming_matrix_cuda.launches == before + 1
+        kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        assert len(kernels) == 1 and "hamming" in kernels[0].name, [e.name for e in kernels]
+        assert torch.equal(got, masked_distance_matrix_plain(*args))
+    assert stereo[0].dim() == 2 and got.dim() == 3
+    none = torch.zeros_like(ma)
+    assert (masked_distance_matrix(a, b, none, mb) == MAX_DIST).all()
+
+
+def test_hamming_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    a, b, ma, mb = _random_case(cuda, 10, 2, 40, 30, 1, True)
+    before = hamming_matrix_cuda.launches
+    with pytest.raises(ValueError, match="torch.bool"):
+        hamming_matrix_cuda(a, b, ma.to(torch.uint8), mb)
+    with pytest.raises(ValueError, match="mask must be a contiguous"):
+        hamming_matrix_cuda(a, b, ma[:, :-1], mb)
+    with pytest.raises(ValueError, match="do not broadcast"):
+        hamming_matrix_cuda(a, b, ma, mb.expand(3, -1).contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        hamming_matrix_cuda(a.to(torch.int64), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        hamming_matrix_cuda(a.transpose(0, 1), b)
+    # 2^16 x 2^15 outputs: the kernel's 32-bit offsets would overflow
+    big_a = torch.zeros((1 << 16, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        hamming_matrix_cuda(big_a, big_a[: 1 << 15])
+    assert hamming_matrix_cuda.launches == before
 
 
 def _harris_both(img, inb, nms_radius):

@@ -1,8 +1,9 @@
 """okvis_tpu_torch Hamming matching against the JAX package: both plain
-distance forms, the masked matrix and the mutual-best assignment, exact on
-inputs with many ties. The CUDA kernel's own checks are in
-tests/test_torch_cuda.py (they need a card)."""
+distance forms, the masked matrix (also batched, against jax.vmap) and the
+mutual-best assignment, exact on inputs with many ties. The CUDA kernel's own
+checks are in tests/test_torch_cuda.py (they need a card)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,6 +62,34 @@ def test_unpack_to_pm1_matches_jax():
     a[0, 0] = 0x80000001  # bit 31 set: the int32 pattern is negative
     want = np.asarray(jham.unpack_to_pm1(jnp.asarray(a), jnp.float32))
     np.testing.assert_array_equal(tham.unpack_to_pm1(_t(a)).numpy(), want)
+
+
+# (G, NA, NB, B batched, masks): the association's batch (one frame's B
+# against 8 sources, broadcast), ragged NA != NB, all-false and all-true masks
+@pytest.mark.parametrize("g,na,nb,b_batched,masks", [
+    (8, 40, 56, False, "random"), (3, 37, 29, True, "random"), (2, 16, 24, True, "none"),
+    (1, 48, 48, False, "all")])
+def test_batched_masked_matrix_matches_jax_vmap(g, na, nb, b_batched, masks):
+    rng = np.random.default_rng(g * 100 + na)
+    a = _desc(rng, g * na).reshape(g, na, 16)
+    b = _desc(rng, (g if b_batched else 1) * nb).reshape(-1, nb, 16)
+    a[:, 0, 0] = 0x80000001  # bit 31 set: the int32 pattern is negative
+    b[:, -1, 5] = 0xFFFFFFFF
+    draw = {"random": lambda s: rng.uniform(size=s) > 0.2, "none": lambda s: np.zeros(s, bool),
+            "all": lambda s: np.ones(s, bool)}[masks]
+    ma, mb = draw((g, na)), draw(b.shape[:2])
+    if not b_batched:  # the port takes B and its mask without a batch and broadcasts
+        b, mb = b[0], mb[0]
+    axes = 0 if b_batched else None
+    want = np.asarray(jax.vmap(jham.masked_distance_matrix, in_axes=(0, axes, 0, axes))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(ma), jnp.asarray(mb)))
+    got = tham.masked_distance_matrix(_t(a), _t(b), torch.from_numpy(ma), torch.from_numpy(mb))
+    assert got.dtype == torch.int32 and got.shape == (g, na, nb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_d = np.asarray(jax.vmap(jham.hamming_matrix_xla, in_axes=(0, axes))(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(tham.hamming_matrix_plain(_t(a), _t(b)).numpy(), want_d)
+    if masks == "none":
+        assert (got == tham.MAX_DIST).all()
 
 
 def _tie_case(seed, na=300, nb=280, flips=24):
