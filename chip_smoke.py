@@ -398,7 +398,7 @@ def time_kernels(images, chk, launches):
 
     shapes = {name: hamming_entry(*args) for name, args in chk["ham"].items()}
     hamming = dict(
-        name="hamming_masked_mma", route="cuda", source="okvis_tpu_torch/csrc/hamming.cu",
+        name="hamming_xor_popcount", route="cuda", source="okvis_tpu_torch/csrc/hamming.cu",
         replaces="okvis_tpu/ops/hamming_pallas.py:40",
         launches=launches["hamming"], max_abs_err=chk["ham_err"], **shapes["400x400"],
     )

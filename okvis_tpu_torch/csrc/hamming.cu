@@ -23,27 +23,22 @@
 // and two k-steps a descriptor. (The .xor.popc form, one product, is not
 // used: the PTX ISA may refuse it for sm_90a.) Only packed words cross
 // memory, 64 B a descriptor, and nothing is expanded: a lane's fragment
-// registers are the words themselves. A lane holds words 4q..4q+3 (one 16-byte load) of each
-// of its fragment rows; A and B map every bit to the same k, so the sum is
-// exact. A warp computes a 16 x 32 output tile from registers alone (no
-// barrier; the 4 warps of a block share nothing but the L1), and a block
-// 32 x 64: 91 blocks at 400 x 400, 650 at 400 x 3200, 728 at (8, 400, 400).
-// Masks: a row masked out, or past NA or NB, adds kInvalid to its distances
-// and one min turns them into MAX_DIST in registers; a lane gets its two
-// columns' flags with two shuffles. Epilogue: the warp's tile goes through
-// shared memory (padded rows, conflict-free 8-byte writes) and out as
-// 16-byte row stores, 4 full 128-byte lines a warp store; where NB is not a
-// multiple of 4 the stores are scalar. One launch covers the whole
+// registers are the words themselves. A lane holds words 4q..4q+3 (one
+// 16-byte load) of each of its fragment rows; A and B map every bit to the
+// same k, so the sum is exact. A warp computes a 16 x 32 output tile from
+// registers alone (no barrier; the 4 warps of a block share nothing but the
+// L1), and a block 32 x 64: 91 blocks at 400 x 400, 650 at 400 x 3200, 728
+// at (8, 400, 400). Masks: a row masked out, or past NA or NB, adds kInvalid
+// to its distances and one min turns them into MAX_DIST in registers; a lane
+// gets its two columns' flags with two shuffles. Epilogue: the warp's tile
+// goes through shared memory (padded rows, conflict-free 8-byte writes) and
+// out as 16-byte row stores, 4 full 128-byte lines a warp store; where NB is
+// not a multiple of 4 the stores are scalar. One launch covers the whole
 // (G, NA, NB) batch, blockIdx.z being the batch; ragged NA and NB are masked
 // here, the caller pads nothing. Offsets are 32-bit: the wrapper rejects
-// G*NA*NB, G*NA*16 or G*NB*16 of 2^31 or more.
-//
-// Measured against this design on the card (scripts/torch_hamming_variants.py,
-// PERF.md): the ±1 s8 m16n8k32 form (bits spread to bytes in registers, 4x
-// the mma instructions), the one-product form popc(a) + popc(b) - 2 popc(a AND b),
-// an epilogue of direct 8-byte stores from the fragments, and other warp and
-// block tiles. They are template parameters; the build defines
-// OKVIS_HAMMING_VARIANTS only for that script.
+// G*NA*NB, G*NA*16 or G*NB*16 of 2^31 or more. PERF.md ranks the designs
+// measured against this one (the ±1 s8 m16n8k32 form, one AND product with
+// the rows' popcounts, direct stores from the fragments, other tiles).
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -52,6 +47,12 @@ namespace {
 constexpr int kMaxDist = 10000;  // MAX_DIST of okvis_tpu/ops/hamming.py
 constexpr int kInvalid = 1 << 20;  // added to the distances of a masked-out row
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTiles = 4;                // m16n8 tiles of a warp, side by side: 16 x 32
+constexpr int kWarpCols = 8 * kTiles;    // 32
+constexpr int kBlockRows = 2 * 16;       // 2 x 2 warps a block: 32 x 64
+constexpr int kBlockCols = 2 * kWarpCols;
+constexpr int kThreads = 4 * 32;
+constexpr int kStride = kWarpCols + 8;   // staged row, padded: conflict-free 8-byte writes
 
 struct Args {
   const uint4* a;         // (Ga, na, 16) words: a row is 4 uint4
@@ -67,15 +68,6 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// D += A B over 16 x 8 x 32 signed bytes (PTX ISA, mma.m16n8k32 fragments)
-__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // D += popc(A AND B) over 16 x 8 x 256 bits (mma.m16n8k256 b1 fragments)
 __device__ __forceinline__ void mma_b1(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                        uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -85,228 +77,94 @@ __device__ __forceinline__ void mma_b1(int (&d)[4], uint32_t a0, uint32_t a1, ui
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// A lane's part of one descriptor row: words 4q..4q+3 and the row's mask
-// byte, both zero past n. Loads only; nothing waits for them here.
+// A lane's part of one descriptor row: words 4q..4q+3, and kInvalid for a
+// row masked out or past n (never stored), else 0. Loads only; nothing waits
+// for them here.
 struct Row {
   uint4 w;
-  int valid;
+  int term;
 };
 
 __device__ __forceinline__ Row fetch_row(const uint4* rows, const uint8_t* mask, int r, int n,
                                          int q) {
-  Row x{make_uint4(0u, 0u, 0u, 0u), 0};
+  Row x{make_uint4(0u, 0u, 0u, 0u), kInvalid};
   if (r < n) {
     x.w = __ldg(rows + r * 4 + q);
-    x.valid = mask ? mask[r] : 1;
+    x.term = (mask && !mask[r]) ? kInvalid : 0;
   }
   return x;
 }
 
-// The three forms of the products. kS8: ±1 bytes, d = (512 - a.b) / 2.
-// kB1Xor: popc(a XOR b) = popc(a AND NOT b) + popc(NOT a AND b), two b1
-// AND+popc products. kB1And: d = popc(a) + popc(b) - 2 popc(a AND b), one
-// b1 product and the rows' popcounts.
-enum Form { kS8, kB1Xor, kB1And };
-
-// A row's term of the epilogue: kInvalid for a row masked out (or past the
-// edge: never stored), else 0, plus the row's popcount in the kB1And form
-// (the 4 lanes of a quad hold the row between them).
-template <int kForm>
-__device__ __forceinline__ int row_term(const Row& x) {
-  int t = x.valid ? 0 : kInvalid;
-  if constexpr (kForm == kB1And) {
-    int p = __popc(x.w.x) + __popc(x.w.y) + __popc(x.w.z) + __popc(x.w.w);
-    p += __shfl_xor_sync(kFull, p, 1);
-    p += __shfl_xor_sync(kFull, p, 2);
-    t += p;
-  }
-  return t;
-}
-
-// bits s, s+8, s+16, s+24 of w as four signed bytes, -1 for a set bit and +1
-// for a clear one: (x * 0xFE + 0x01010101) never carries between bytes
-__device__ __forceinline__ uint32_t pm1(uint32_t w, int s) {
-  return ((w >> s) & 0x01010101u) * 0xFEu + 0x01010101u;
-}
-
-// A warp computes a (16 MI) x (8 NI) tile; a block holds WM x WN warps.
-template <int MI, int NI, int WM, int WN, int kForm, bool kStaged>
-__global__ void __launch_bounds__(WM * WN * 32) hamming_kernel(const Args p) {
-  constexpr int kCols = 8 * NI;
+__global__ void __launch_bounds__(kThreads) hamming_kernel(const Args p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane >> 2;  // fragment row (A) or column (B) within 8
   const int q = lane & 3;     // the lane's quarter of a row: words 4q..4q+3
   const int g = blockIdx.z;
-  const int row0 = (blockIdx.y * WM + warp / WN) * (16 * MI);
-  const int col0 = (blockIdx.x * WN + warp % WN) * kCols;
+  const int row0 = blockIdx.y * kBlockRows + (warp >> 1) * 16;
+  const int col0 = blockIdx.x * kBlockCols + (warp & 1) * kWarpCols;
   if (row0 >= p.na || col0 >= p.nb) return;  // uniform over the warp
 
   const uint4* a = p.a + g * p.a_batch * 4;
   const uint4* b = p.b + g * p.b_batch * 4;
   const uint8_t* ma = p.mask_a ? p.mask_a + g * p.ma_batch : nullptr;
   const uint8_t* mb = p.mask_b ? p.mask_b + g * p.mb_batch : nullptr;
-  Row ra[MI][2], rb[NI];
+  Row ra[2], rb[kTiles];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int h = 0; h < 2; ++h) ra[h] = fetch_row(a, ma, row0 + 8 * h + gid, p.na, q);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) ra[i][h] = fetch_row(a, ma, row0 + 16 * i + 8 * h + gid, p.na, q);
-#pragma unroll
-  for (int j = 0; j < NI; ++j) rb[j] = fetch_row(b, mb, col0 + 8 * j + gid, p.nb, q);
+  for (int j = 0; j < kTiles; ++j) rb[j] = fetch_row(b, mb, col0 + 8 * j + gid, p.nb, q);
 
-  int acc[MI][NI][4];
+  int acc[kTiles][4] = {};
+  // k-step s: the fragment halves take words 4q + 2s and 4q + 2s + 1
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t a0 = word(ra[0].w, 2 * s), a1 = word(ra[1].w, 2 * s);
+    const uint32_t a2 = word(ra[0].w, 2 * s + 1), a3 = word(ra[1].w, 2 * s + 1);
 #pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  if constexpr (kForm != kS8) {
-    // k-step s: the fragment halves take words 4q + 2s and 4q + 2s + 1
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const uint32_t a0 = word(ra[i][0].w, 2 * s), a1 = word(ra[i][1].w, 2 * s);
-        const uint32_t a2 = word(ra[i][0].w, 2 * s + 1), a3 = word(ra[i][1].w, 2 * s + 1);
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const uint32_t b0 = word(rb[j].w, 2 * s), b1 = word(rb[j].w, 2 * s + 1);
-          if constexpr (kForm == kB1Xor) {
-            mma_b1(acc[i][j], a0, a1, a2, a3, ~b0, ~b1);
-            mma_b1(acc[i][j], ~a0, ~a1, ~a2, ~a3, b0, b1);
-          } else {
-            mma_b1(acc[i][j], a0, a1, a2, a3, b0, b1);
-          }
-        }
-      }
-  } else {
-    // ±1 bytes: popc(a XOR b) = (512 - a.b) / 2. k-step (c, e): word 4q + c,
-    // bit shifts 2e (low half of the fragment) and 2e + 1 (high half).
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        uint32_t lo[MI][2], hi[MI][2];
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            lo[i][h] = pm1(word(ra[i][h].w, c), 2 * e);
-            hi[i][h] = pm1(word(ra[i][h].w, c), 2 * e + 1);
-          }
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const uint32_t b0 = pm1(word(rb[j].w, c), 2 * e);
-          const uint32_t b1 = pm1(word(rb[j].w, c), 2 * e + 1);
-#pragma unroll
-          for (int i = 0; i < MI; ++i)
-            mma_s8(acc[i][j], lo[i][0], lo[i][1], hi[i][0], hi[i][1], b0, b1);
-        }
-      }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = (512 - acc[i][j][e]) >> 1;
-  }
-
-  // Epilogue. Accumulator e of m16n8 tile (i, j) sits at row 16i + 8(e/2) +
-  // gid, column 8j + 2q + e%2; the terms of those two columns are held by
-  // the lanes of rows gid = 2q and 2q + 1 of B. A distance with a kInvalid
-  // term is far above MAX_DIST, so one min masks it.
-  int32_t* out = p.out + g * p.na * p.nb;
-  int ta[MI][2];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) ta[i][h] = row_term<kForm>(ra[i][h]);
-  int val[MI][NI][4];
-#pragma unroll
-  for (int j = 0; j < NI; ++j) {
-    const int tb = row_term<kForm>(rb[j]);
-    const int tb0 = __shfl_sync(kFull, tb, 8 * q);
-    const int tb1 = __shfl_sync(kFull, tb, 8 * q + 4);
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int dot = acc[i][j][2 * h + e], terms = ta[i][h] + (e ? tb1 : tb0);
-          val[i][j][2 * h + e] = min(kForm == kB1And ? terms - 2 * dot : dot + terms, kMaxDist);
-        }
-  }
-
-  if constexpr (!kStaged) {
-    const bool pairs = (p.nb & 1) == 0;  // every (row, even column) is 8-byte aligned
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * i + 8 * h + gid;
-        if (r >= p.na) continue;
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int c = col0 + 8 * j + 2 * q;
-          int32_t* o = out + r * p.nb + c;
-          if (pairs && c + 1 < p.nb) {
-            *reinterpret_cast<int2*>(o) = make_int2(val[i][j][2 * h], val[i][j][2 * h + 1]);
-          } else {
-            if (c < p.nb) o[0] = val[i][j][2 * h];
-            if (c + 1 < p.nb) o[1] = val[i][j][2 * h + 1];
-          }
-        }
-      }
-  } else {
-    // the warp's tile through shared memory, then 16-byte row stores
-    constexpr int kStride = kCols + 8;  // pad: conflict-free 8-byte writes
-    __shared__ __align__(16) int stage[WM * WN][16 * MI][kStride];
-    auto& t = stage[warp];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < NI; ++j)
-          *reinterpret_cast<int2*>(&t[16 * i + 8 * h + gid][8 * j + 2 * q]) =
-              make_int2(val[i][j][2 * h], val[i][j][2 * h + 1]);
-    __syncwarp();
-    const bool quads = (p.nb & 3) == 0;  // every (row, 4k column) is 16-byte aligned
-#pragma unroll
-    for (int k = lane; k < 16 * MI * kCols / 4; k += 32) {
-      const int lr = k / (kCols / 4), lc = 4 * (k % (kCols / 4));
-      const int r = row0 + lr, c = col0 + lc;
-      if (r >= p.na) continue;
-      int32_t* o = out + r * p.nb + c;
-      const int4 v = *reinterpret_cast<const int4*>(&t[lr][lc]);
-      if (quads && c + 3 < p.nb) {
-        *reinterpret_cast<int4*>(o) = v;
-      } else {
-        if (c < p.nb) o[0] = v.x;
-        if (c + 1 < p.nb) o[1] = v.y;
-        if (c + 2 < p.nb) o[2] = v.z;
-        if (c + 3 < p.nb) o[3] = v.w;
-      }
+    for (int j = 0; j < kTiles; ++j) {
+      const uint32_t b0 = word(rb[j].w, 2 * s), b1 = word(rb[j].w, 2 * s + 1);
+      mma_b1(acc[j], a0, a1, a2, a3, ~b0, ~b1);
+      mma_b1(acc[j], ~a0, ~a1, ~a2, ~a3, b0, b1);
     }
   }
-}
 
-template <int MI, int NI, int WM, int WN, int kForm, bool kStaged>
-int launch(const Args& p, cudaStream_t stream) {
-  constexpr int kRows = 16 * MI * WM, kCols = 8 * NI * WN;
-  const dim3 grid((p.nb + kCols - 1) / kCols, (p.na + kRows - 1) / kRows, p.g);
-  hamming_kernel<MI, NI, WM, WN, kForm, kStaged><<<grid, WM * WN * 32, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-Args make_args(const void* a, const void* b, const void* mask_a, const void* mask_b, void* out,
-               int g, int na, int nb, int a_batch, int b_batch, int ma_batch, int mb_batch) {
-  return Args{static_cast<const uint4*>(a), static_cast<const uint4*>(b),
-              static_cast<const uint8_t*>(mask_a), static_cast<const uint8_t*>(mask_b),
-              static_cast<int32_t*>(out), g, na, nb, a_batch, b_batch, ma_batch, mb_batch};
+  // Epilogue. Accumulator e of m16n8 tile j sits at row 8(e/2) + gid, column
+  // 8j + 2q + e%2; the terms of those two columns are held by the lanes of
+  // rows gid = 2q and 2q + 1 of B. A distance with a kInvalid term is far
+  // above MAX_DIST, so one min masks it. The warp's tile goes through shared
+  // memory, then out as 16-byte row stores.
+  __shared__ __align__(16) int stage[kThreads / 32][16][kStride];
+  auto& t = stage[warp];
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    const int tb0 = __shfl_sync(kFull, rb[j].term, 8 * q);
+    const int tb1 = __shfl_sync(kFull, rb[j].term, 8 * q + 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<int2*>(&t[8 * h + gid][8 * j + 2 * q]) =
+          make_int2(min(acc[j][2 * h] + ra[h].term + tb0, kMaxDist),
+                    min(acc[j][2 * h + 1] + ra[h].term + tb1, kMaxDist));
+  }
+  __syncwarp();
+  int32_t* out = p.out + g * p.na * p.nb;
+  const bool quads = (p.nb & 3) == 0;  // every (row, 4k column) is 16-byte aligned
+#pragma unroll
+  for (int k = lane; k < 16 * kWarpCols / 4; k += 32) {
+    const int lr = k / (kWarpCols / 4), lc = 4 * (k % (kWarpCols / 4));
+    const int r = row0 + lr, c = col0 + lc;
+    if (r >= p.na) continue;
+    int32_t* o = out + r * p.nb + c;
+    const int4 v = *reinterpret_cast<const int4*>(&t[lr][lc]);
+    if (quads && c + 3 < p.nb) {
+      *reinterpret_cast<int4*>(o) = v;
+    } else {
+      if (c < p.nb) o[0] = v.x;
+      if (c + 1 < p.nb) o[1] = v.y;
+      if (c + 2 < p.nb) o[2] = v.z;
+      if (c + 3 < p.nb) o[3] = v.w;
+    }
+  }
 }
 
 }  // namespace
@@ -320,46 +178,10 @@ extern "C" int okvis_hamming_matrix(const void* a, const void* b, const void* ma
                                     const void* mask_b, void* out, int g, int na, int nb,
                                     int a_batch, int b_batch, int ma_batch, int mb_batch,
                                     void* stream) {
-  return launch<1, 4, 2, 2, kB1Xor, true>(
-      make_args(a, b, mask_a, mask_b, out, g, na, nb, a_batch, b_batch, ma_batch, mb_batch),
-      static_cast<cudaStream_t>(stream));
+  const Args p{static_cast<const uint4*>(a), static_cast<const uint4*>(b),
+               static_cast<const uint8_t*>(mask_a), static_cast<const uint8_t*>(mask_b),
+               static_cast<int32_t*>(out), g, na, nb, a_batch, b_batch, ma_batch, mb_batch};
+  const dim3 grid((nb + kBlockCols - 1) / kBlockCols, (na + kBlockRows - 1) / kBlockRows, g);
+  hamming_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
-
-#ifdef OKVIS_HAMMING_VARIANTS
-// Candidate forms, epilogues and tiles, for scripts/torch_hamming_variants.py.
-// A name reads "form epilogue MI NI WM WN": a Form, the staged or direct
-// epilogue, a warp tile of 16 MI x 8 NI, a block of WM x WN warps.
-namespace {
-struct Variant {
-  const char* name;
-  int (*fn)(const Args&, cudaStream_t);
-};
-constexpr bool staged = true, direct = false;
-#define OKVIS_V(FORM, EPI, MI, NI, WM, WN) \
-  Variant { #FORM " " #EPI " " #MI " " #NI " " #WM " " #WN, launch<MI, NI, WM, WN, FORM, EPI> }
-const Variant kVariants[] = {
-    OKVIS_V(kS8, direct, 1, 4, 2, 2),     OKVIS_V(kS8, staged, 1, 4, 2, 2),
-    OKVIS_V(kB1Xor, direct, 1, 4, 2, 2),  OKVIS_V(kB1Xor, staged, 1, 4, 2, 2),
-    OKVIS_V(kB1And, direct, 1, 4, 2, 2),  OKVIS_V(kB1And, staged, 1, 4, 2, 2),
-    OKVIS_V(kB1Xor, staged, 1, 4, 1, 4),  OKVIS_V(kB1Xor, staged, 1, 4, 4, 1),
-    OKVIS_V(kB1And, staged, 1, 4, 1, 4),  OKVIS_V(kB1And, staged, 1, 4, 4, 1),
-    OKVIS_V(kB1And, staged, 1, 2, 2, 2),  OKVIS_V(kB1And, staged, 2, 4, 1, 2),
-    OKVIS_V(kB1And, staged, 2, 4, 2, 2),  OKVIS_V(kB1And, staged, 1, 8, 2, 1),
-    OKVIS_V(kB1And, staged, 1, 8, 4, 1),  OKVIS_V(kB1And, staged, 2, 8, 2, 1)};
-}  // namespace
-
-extern "C" int okvis_hamming_variant_count() {
-  return static_cast<int>(sizeof(kVariants) / sizeof(kVariants[0]));
-}
-
-extern "C" const char* okvis_hamming_variant_name(int i) { return kVariants[i].name; }
-
-extern "C" int okvis_hamming_matrix_variant(int i, const void* a, const void* b,
-                                            const void* mask_a, const void* mask_b, void* out,
-                                            int g, int na, int nb, int a_batch, int b_batch,
-                                            int ma_batch, int mb_batch, void* stream) {
-  return kVariants[i].fn(
-      make_args(a, b, mask_a, mask_b, out, g, na, nb, a_batch, b_batch, ma_batch, mb_batch),
-      static_cast<cudaStream_t>(stream));
-}
-#endif
