@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the okvis_tpu_torch stereo slice on one CUDA card and check it.
+"""Drive the okvis_tpu_torch vision slice and back end on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -25,7 +26,17 @@
 7. times each kernel, its plain version and the yardstick (Hamming: the
    ±1 float32 torch.matmul, torch.bmm for the batch, and the whole
    masked_distance_matrix call) with CUDA events, a one-element torch add as
-   the floor of a launch, and the per-frame stages with the host clock.
+   the floor of a launch, and the per-frame stages with the host clock;
+8. builds the back end's window at the estimator's full width in float32 on
+   the card (BACKEND_WINDOW: 9 states, 512 landmark slots, 2048
+   observation slots, 8 IMU links), perturbs it (numpy seed 7), runs
+   propagate, the 8 links' preintegration and optimize_window (LM and dogleg
+   with Newton-Schulz, LM with Cholesky) with host syncs raising, and holds
+   each to ground truth and to the port's float64 CPU run; then the
+   estimator's marginalization of state 0 (PSD, and against float64);
+9. times each back-end stage (preintegrate, propagate, evaluate, optimize,
+   marginalize): CUDA events, host wall clock, torch.profiler launches and
+   busy share, host syncs per call. No TPU kernel lies on this path.
 
 Prints the `kernels` JSON line, and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
@@ -34,12 +45,14 @@ ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -49,6 +62,38 @@ MIN_MATCHES = 12  # stereo matches per frame (CPU run: >= 23)
 MIN_DEPTH_SHARE = 0.85  # valid triangulations within 10 % depth (CPU run: 0.955)
 
 N_FRAMES = 20  # frames of the smoke sequence
+
+# The back end's window at the estimator's full width: S = 9 states, C = 2
+# cameras, L = 512 landmark slots, O = 2048 observation slots, P = 32 IMU
+# samples a link, K = 8 links, 2 + 2 priors, 10 LM iterations; D = 147.
+BACKEND_WINDOW = dict(num_frames=9, frame_stride=20, n_landmarks=400, duration=2.0, seed=5,
+                      cfg_kwargs=dict(max_landmarks=512, max_observations=2048, imu_samples=32,
+                                      max_imu_links=8, max_iterations=10, min_iterations=3))
+# float32 on the card against the port's float64 CPU run (PERF.md gives the
+# gaps measured on the card and on the CPU): propagate in m and m/s;
+# preintegrate and marginalize as max |card - float64| over max |float64|
+# per field.
+PROPAGATE_F64_TOL = 1e-4
+PREINTEGRATE_TOL = 1e-4
+# optimize, per variant: gates on the errors against ground truth (m, rad,
+# speed/bias, final over perturbed cost) and the final poses' distance from
+# the float64 CPU run of the same variant (m, rad). LM + Cholesky takes the
+# reference gates (TestEstimator.cpp:229-236). The float32 Newton-Schulz
+# solve is not backward stable once the damping is small: LM + Newton-Schulz
+# lands at up to 0.014 rad and 0.039 speed/bias over 20 card runs (the
+# atomics' summation order differs run to run), the JAX package's own
+# float32 run at 0.006 rad and 0.057; dogleg + Newton-Schulz fails every
+# undamped step in both packages (scripts/jax_float32_window.py), so it is
+# held to a finite result below the perturbed cost.
+INF = float("inf")
+OPTIMIZE_GATES = dict(
+    optimize=dict(gates=(0.1, 3e-2, 0.1, 0.1), f64=(0.05, 0.03)),
+    optimize_cholesky=dict(gates=(0.1, 1e-2, 0.04, 0.1), f64=(0.01, 5e-3)),
+    optimize_dogleg=dict(gates=(INF, INF, INF, 1.0), f64=None),
+)
+# b0 on the scale sqrt(H_ii c0) that bounds it: float32's eigenvalue cut
+# (eps * D * lmax) drops directions of H that float64 keeps
+MARG_TOL = dict(H=1e-3, b0=0.1, c0=1e-4)
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # Operations a second by class, without FMA. The data sheet's 67 TFLOP/s in
@@ -411,6 +456,314 @@ def time_kernels(images, chk, launches):
     return [harris, hamming]
 
 
+def perturb_problem(problem, truth, rng, pose_scale=0.05, lm_scale=0.1):
+    """Perturb every state but the prior-anchored first one, and the
+    landmarks (the helper of tests/test_solver.py, in torch)."""
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+
+    S, n_lm = truth["r_WS"].shape[0], truth["n_landmarks"]
+    st = problem.states
+    t = lambda a: torch.as_tensor(a).to(st.r_WS)  # noqa: E731
+    d = t(np.concatenate([np.zeros((1, 6)), rng.normal(0, pose_scale, (S - 1, 6))]))
+    pose = kin.oplus(kin.SE3(r=st.r_WS[:S], q=st.q_WS[:S]), d)
+    sb_noise = t(np.concatenate([np.zeros((1, 9)), rng.normal(0, pose_scale, (S - 1, 9))]))
+    lm_noise = t(rng.normal(0, lm_scale, (n_lm, 3)))
+    r_WS, q_WS, sb, hp = st.r_WS.clone(), st.q_WS.clone(), st.speed_and_bias.clone(), st.hp_W.clone()
+    r_WS[:S], q_WS[:S] = pose.r, pose.q
+    sb[:S] += sb_noise
+    hp[:n_lm, :3] += lm_noise
+    return problem._replace(states=st._replace(r_WS=r_WS, q_WS=q_WS, speed_and_bias=sb, hp_W=hp))
+
+
+def build_window(dev, dtype):
+    """The back end's window at the estimator's full width, perturbed with
+    numpy seed 7: (cfg, imu_params, intrinsics, perturbed problem, truth)."""
+    from okvis_tpu_torch.datasets.synthetic import build_ba_problem
+
+    cfg, imu, intr, problem, truth = build_ba_problem(**BACKEND_WINDOW, device=dev, dtype=dtype)
+    return cfg, imu, intr, perturb_problem(problem, truth, np.random.default_rng(7)), truth
+
+
+def pose_errors(states, r_ref, q_ref) -> tuple:
+    """(max position error, max orientation error in rad) of the states'
+    poses against reference arrays."""
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+
+    S = r_ref.shape[0]
+    r = states.r_WS[:S].detach().cpu().double()
+    dq = kin.quat_multiply(kin.quat_conjugate(states.q_WS[:S].detach().cpu().double()),
+                           torch.as_tensor(q_ref, dtype=torch.float64))
+    ang = 2 * torch.atan2(torch.linalg.norm(dq[:, :3], dim=-1), dq[:, 3].abs())
+    return float((r - torch.as_tensor(r_ref)).abs().max()), float(ang.max())
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-300))
+
+
+def marg_masks(cfg, problem) -> tuple:
+    """What the estimator's step eliminates when state 0 leaves the window:
+    its 15 dense dims, and the landmarks only state 0 observes; the prior
+    covers the other states' dims. Numpy masks from the observation table:
+    (marg_dense, keep_dense, marg_lm)."""
+    obs = problem.obs
+    on = obs.mask.cpu().numpy()
+    sidx, lidx = obs.state_idx.cpu().numpy()[on], obs.lm_idx.cpu().numpy()[on]
+    seen_by_0, seen_by_other = np.zeros(cfg.max_landmarks, bool), np.zeros(cfg.max_landmarks, bool)
+    seen_by_0[lidx[sidx == 0]] = True
+    seen_by_other[lidx[sidx != 0]] = True
+    d = np.arange(cfg.dense_dim)
+    return d < 15, (d >= 15) & (d < cfg.num_states * 15), seen_by_0 & ~seen_by_other
+
+
+def check_propagate(out, ref64, truth):
+    """Link 0 propagated (mean only) against ground truth and float64."""
+    import torch
+
+    (T1, sb1), (T1_64, sb1_64) = out, ref64
+    f1 = truth["frame_idx"][1]
+    r, v = T1.r.cpu().double(), sb1[:3].cpu().double()
+    prop = dict(gt_r=float((r - torch.as_tensor(truth["traj"].r[f1])).abs().max()),
+                gt_v=float((v - torch.as_tensor(truth["traj"].v[f1])).abs().max()),
+                f64_r=float((r - T1_64.r).abs().max()), f64_v=float((v - sb1_64[:3]).abs().max()))
+    print("backend_propagate", json.dumps(prop))
+    if max(prop["gt_r"], prop["gt_v"]) > 2e-3 or max(prop["f64_r"], prop["f64_v"]) > PROPAGATE_F64_TOL:
+        raise SmokeError(f"propagate off: {prop}")
+
+
+def check_preintegrate(pre, pre64):
+    """The links preintegrated in full mode against float64, field by field."""
+    K = pre.delta_t.shape[0]
+    err = {name: rel_err(getattr(pre, name), getattr(pre64, name)[:K]) for name in pre64._fields}
+    print("backend_preintegrate", json.dumps(err))
+    if not max(err.values()) <= PREINTEGRATE_TOL:
+        raise SmokeError(f"preintegrate differs from float64 beyond {PREINTEGRATE_TOL}: {err}")
+
+
+def cfg_of(variant: str, cfg):
+    """The window config of an optimize variant of OPTIMIZE_GATES."""
+    return replace(cfg, dense_solver="cholesky" if variant.endswith("cholesky") else "newton",
+                   algorithm="dogleg" if "dogleg" in variant else "lm")
+
+
+def check_optimize(out, window, window64, truth):
+    """Each variant against ground truth and against the float64 CPU run of
+    the same variant, and the default run against a float32 run on the CPU
+    of the same window (copied from the card); the gates and tolerances of
+    OPTIMIZE_GATES."""
+    import torch
+
+    from okvis_tpu_torch.convert import problem_from_numpy, problem_to_numpy
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    cfg, imu, intr, problem = window
+    S = cfg.num_states
+    cost0 = float(evaluate(cfg, imu, intr, problem, problem.states).cost)
+    cpu32 = (cfg, type(imu)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in imu)),
+             [i.cpu() for i in intr], problem_from_numpy(problem_to_numpy(problem), "cpu", torch.float32))
+    opt = {}
+    for name, (states, diag) in out.items():
+        r_err, ang_err = pose_errors(states, truth["r_WS"], truth["q_WS"])
+        sb_err = float((states.speed_and_bias[:S].cpu().double() - torch.as_tensor(truth["sb"])).abs().max())
+        o = opt[name] = dict(position=r_err, orientation=ang_err, speed_bias=sb_err, cost0=cost0,
+                             final_cost=float(diag.final_cost), accepted=diag.accepted.cpu().tolist())
+        refs = [("f64", window64)] + ([("cpu_f32", cpu32)] if name == "optimize" else [])
+        for key, (c, i, n, p) in refs:
+            ref, _ = optimize_window(cfg_of(name, c), i, n, p)
+            o[f"{key}_position"], o[f"{key}_orientation"] = pose_errors(
+                states, ref.r_WS[:S].numpy(), ref.q_WS[:S].numpy())
+    print("backend_optimize", json.dumps(opt))
+    for name, o in opt.items():
+        g = OPTIMIZE_GATES[name]
+        errs = (o["position"], o["orientation"], o["speed_bias"], o["final_cost"] / cost0)
+        if not (bool(torch.isfinite(out[name][0].r_WS).all()) and all(e < t for e, t in zip(errs, g["gates"]))):
+            raise SmokeError(f"{name} misses its gates {g['gates']}: {o}")
+        if g["f64"] and (o["f64_position"] > g["f64"][0] or o["f64_orientation"] > g["f64"][1]):
+            raise SmokeError(f"{name} differs from the float64 CPU run beyond {g['f64']}: {o}")
+
+
+def check_marginalize(window, window64, states):
+    """The estimator's marginalization step at the optimized states:
+    evaluate, then marginalize_system with c0_in = 2 cost. H symmetric and
+    PSD, zero on the eliminated dims; H, b0, c0 on the kept block against
+    float64 on the same states. Returns (eqs, marginalize call) for timing."""
+    import torch
+
+    from okvis_tpu_torch.estimator.marginalization import marginalize_system
+    from okvis_tpu_torch.solver import evaluate
+
+    cfg, imu, intr, problem = window
+    marg_dense, keep_dense, marg_lm = marg_masks(cfg, problem)
+    dev = problem.states.r_WS.device
+    margs = tuple(torch.as_tensor(m, device=dev) for m in (marg_dense, keep_dense, marg_lm))
+    eqs = evaluate(cfg, imu, intr, problem._replace(states=states), states)
+    marg = marginalize_system(cfg, eqs, *margs, 2.0 * eqs.cost)
+    cfg64, imu64, intr64, problem64 = window64
+    states64 = type(states)(*(x.cpu().double() for x in states))
+    eqs64 = evaluate(cfg64, imu64, intr64, problem64._replace(states=states64), states64)
+    marg64 = marginalize_system(cfg64, eqs64, *(torch.as_tensor(m) for m in (marg_dense, keep_dense, marg_lm)),
+                                2.0 * eqs64.cost)
+    H = marg.H.cpu().double()
+    w = torch.linalg.eigvalsh(H)
+    kd = torch.as_tensor(keep_dense)
+    checks = dict(
+        eliminated_landmarks=int(marg_lm.sum()),
+        asymmetry=float((H - H.T).abs().max() / H.abs().max()),
+        least_over_largest_eig=float(w.min() / w.max()),
+        eliminated_rows=float(H[torch.as_tensor(marg_dense)].abs().max() / H.abs().max()),
+        H_rel=rel_err(marg.H[kd][:, kd], marg64.H[kd][:, kd]),
+        # |b0_i| <= sqrt(H_ii c0) (b0 = -J^T e0): near the optimum b0 is a
+        # small difference of large terms, so its error is read on that scale
+        b0_scaled=float(((marg.b0.cpu().double() - marg64.b0)[kd]
+                         / torch.sqrt(torch.diagonal(marg64.H)[kd] * marg64.c0)).abs().max()),
+        c0_rel=rel_err(marg.c0, marg64.c0),
+    )
+    print("backend_marginalize", json.dumps(checks))
+    if not (checks["asymmetry"] <= 1e-6 and checks["least_over_largest_eig"] >= -1e-6
+            and checks["eliminated_rows"] <= 1e-6 and checks["H_rel"] <= MARG_TOL["H"]
+            and checks["b0_scaled"] <= MARG_TOL["b0"] and checks["c0_rel"] <= MARG_TOL["c0"]):
+        raise SmokeError(f"marginalization check failed: {checks}")
+    return eqs, lambda: marginalize_system(cfg, eqs, *margs, 2.0 * eqs.cost)
+
+
+def check_backend(dev, sync_free):
+    """Build, propagate, preintegrate, optimize (three variants) and
+    marginalize the full window in float32 on `dev`; hold each to ground
+    truth and to the port's float64 CPU run. The calls of propagate,
+    preintegrate and optimize run, after a warm-up, inside `sync_free()`, a
+    context in which a host sync raises, with every input already on `dev`.
+    Returns each stage's call for the timings, the window's normal
+    equations, and its config."""
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.imu.preintegration import preintegrate, propagate
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    cfg, imu, intr, problem, truth = build_window(dev, torch.float32)
+    window64 = build_window("cpu", torch.float64)[:4]
+    O = int(problem.obs.mask.sum())
+    tf32 = torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+    print("backend_problem", json.dumps(dict(
+        S=cfg.num_states, C=cfg.num_cameras, L=cfg.max_landmarks, O=cfg.max_observations,
+        active_observations=O, K=cfg.max_imu_links, P=cfg.imu_samples, D=cfg.dense_dim,
+        max_iterations=cfg.max_iterations, dtype="float32", tf32=tf32)))
+    if (O, cfg.dense_dim, cfg.num_states) != (1250, 147, 9) or tf32:
+        raise SmokeError(f"not the full window in float32: {O} observations, D = {cfg.dense_dim}, tf32 {tf32}")
+
+    def inputs(d, dtype):
+        """preintegrate's arguments for the K links, and propagate's for
+        link 0 from the true state 0, already on `d`."""
+        t = lambda a: torch.as_tensor(a).to(device=d, dtype=dtype)  # noqa: E731
+        pre = tuple(t(v) for v in truth["imu_links"].values())
+        T0 = kin.SE3(r=t(truth["r_WS"][0]), q=t(truth["q_WS"][0]))
+        return pre, (T0, pre[5][0], *(a[0] for a in pre[:5]))
+
+    (pre_in, prop_in), (pre_in64, prop_in64) = inputs(dev, torch.float32), inputs("cpu", torch.float64)
+    stages = dict(
+        propagate=lambda: propagate(imu, *prop_in),
+        preintegrate=lambda: preintegrate(imu, *pre_in),
+        **{name: (lambda c=cfg_of(name, cfg): optimize_window(c, imu, intr, problem))
+           for name in OPTIMIZE_GATES},
+    )
+    for fn in stages.values():  # warm-up: allocator, cuBLAS and cuSOLVER handles
+        fn()
+    with sync_free():
+        out = {name: fn() for name, fn in stages.items()}
+    # back on the host from here: every read below may synchronise
+
+    imu64 = window64[1]
+    check_propagate(out["propagate"], propagate(imu64, *prop_in64), truth)
+    check_preintegrate(out["preintegrate"], window64[3].imu_links.pre)
+    check_optimize({name: out[name] for name in OPTIMIZE_GATES}, (cfg, imu, intr, problem), window64, truth)
+    eqs, stages["marginalize"] = check_marginalize((cfg, imu, intr, problem), window64, out["optimize"][0])
+    stages["evaluate"] = lambda: evaluate(cfg, imu, intr, problem, problem.states)
+    return stages, eqs, cfg
+
+
+def profile_call(fn, top: int = 0) -> dict:
+    """One call under torch.profiler: its device kernels' summed time, their
+    launches, and the `top` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    out = dict(kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+               launches=sum(e.count for e in kernels))
+    if top:
+        out["top"] = [dict(kernel=e.key[:80], device_ms=e.self_device_time_total / 1e3, calls=e.count)
+                      for e in kernels[:top]]
+    return out
+
+
+def count_syncs(fn) -> int:
+    """Host syncs in one call, counted from the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_backend(stages, eqs, cfg) -> dict:
+    """Per stage: device ms (CUDA events around back-to-back calls behind a
+    sleep kernel), host wall ms (median of 20 calls, each ending in a sync),
+    summed kernel time, launches and device busy share (torch.profiler),
+    host syncs per call. Under optimize, the share of its kernel time that
+    the 10 Newton-Schulz solves and the 11 evaluates take."""
+    import torch
+
+    from okvis_tpu_torch.solver.optimize import _spd_solve_newton
+
+    out = {}
+    for name in ("preintegrate", "propagate", "evaluate", "optimize", "marginalize"):
+        fn = stages[name]
+        fn()
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        row = dict(stage=name, device_ms=device_ms(fn, reps=5, inner=2), host_ms=statistics.median(host),
+                   **profile_call(fn, top=8 if name == "optimize" else 0), syncs_per_call=count_syncs(fn))
+        row["device_busy_share"] = row["kernel_ms"] / row["host_ms"]
+        out[name] = row
+    # the dense solve alone, on the window's own Jacobi-scaled system
+    s = torch.sqrt(torch.clamp(torch.diagonal(eqs.H_dd), min=1e-12))
+    Hs = eqs.H_dd / (s[:, None] * s[None, :]) + 1e-10 * torch.eye(cfg.dense_dim, device=s.device)
+    newton = profile_call(lambda: _spd_solve_newton(Hs, eqs.b_d / s))
+    opt = out["optimize"]
+    opt["newton_kernel_ms"], opt["newton_launches"] = newton["kernel_ms"], newton["launches"]
+    opt["share_newton"] = cfg.max_iterations * newton["kernel_ms"] / opt["kernel_ms"]
+    opt["share_evaluate"] = (cfg.max_iterations + 1) * out["evaluate"]["kernel_ms"] / opt["kernel_ms"]
+    for row in out.values():
+        print("backend", json.dumps(row))
+    return out
+
+
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
     compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
@@ -477,6 +830,20 @@ def main() -> int:
     chk = check_kernels(images.contiguous(), fds)
     check_against_cpu(frames, fds)
     kernels = time_kernels(images.contiguous(), chk, launches)
+
+    @contextlib.contextmanager
+    def sync_free():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    t0 = time.perf_counter()
+    stages, eqs, cfg = check_backend("cuda", sync_free)
+    time_backend(stages, eqs, cfg)
+    print(f"backend_seconds {time.perf_counter() - t0:.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Synthetic VIO world: analytic trajectory + IMU, landmark cloud, rendered
-camera images (port of the vision subset of okvis_tpu.datasets.synthetic).
+camera images, and the bundle-adjustment window built from them (port of
+okvis_tpu.datasets.synthetic).
 
 The trajectory, IMU and landmarks are numpy, made from a seed; the rig and
 the projection used by the renderer are the port's own.
@@ -17,6 +18,9 @@ from .. import kinematics as kin
 from ..cameras import pinhole
 from ..cameras.pinhole import CameraSpec
 from ..device import resolve_device
+from ..factors.priors import sqrt_information
+from ..imu.preintegration import ImuParams, preintegrate
+from ..solver.structure import WindowConfig, empty_problem
 
 
 def _np_quat_mul(q1, q2):
@@ -162,6 +166,139 @@ def make_landmarks(
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     rad = rng.uniform(radius[0], radius[1], (n_landmarks, 1))
     return center + dirs * rad
+
+
+def build_ba_problem(
+    num_frames: int = 4,
+    frame_stride: int = 60,  # IMU samples between frames (0.3 s at 200 Hz)
+    n_landmarks: int = 96,
+    pixel_noise: float = 0.7,
+    duration: float = 4.0,
+    seed: int = 5,
+    cfg_kwargs: Optional[dict] = None,
+    device=None,
+    dtype: torch.dtype = torch.float64,
+):
+    """A fully populated BaProblem of the synthetic world, on `device` in
+    `dtype` (the JAX package's build_ba_problem, draw for draw).
+
+    Returns (cfg, imu_params, intrinsics, problem_at_truth, truth). The truth
+    stays float64 numpy. The observations are projected in float64 on the
+    host, so every device and dtype sees the same observation table; the IMU
+    links preintegrate in one batched call on `device`, with each link's
+    timestamps rebased to its first sample before the cast to `dtype`."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    traj = simulate_trajectory(duration=duration, seed=seed)
+    specs, T_SC, intrinsics64 = euroc_stereo_rig(device="cpu")
+    lms = make_landmarks(traj, n_landmarks, seed=seed + 1)
+    imu_params = ImuParams.euroc(dtype=dtype, device=device)
+
+    frame_idx = [i * frame_stride for i in range(num_frames)]
+    S = num_frames
+    cfg_defaults = dict(
+        num_states=S,
+        num_cameras=2,
+        max_landmarks=max(128, n_landmarks),
+        max_observations=2048,
+        imu_samples=frame_stride + 2,
+        max_imu_links=max(S - 1, 1),
+        camera_specs=specs,
+    )
+    cfg_defaults.update(cfg_kwargs or {})
+    cfg = WindowConfig(**cfg_defaults)
+    problem = empty_problem(cfg, dtype=dtype, device=device)
+
+    def t(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float64)).to(device=device, dtype=dtype)
+
+    def i32(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32)).to(device)
+
+    # ground-truth states
+    sb = np.concatenate([traj.v[frame_idx], np.zeros((S, 6))], axis=1)
+    st = problem.states
+    st.r_WS[:S] = t(traj.r[frame_idx])
+    st.q_WS[:S] = t(traj.q[frame_idx])
+    st.speed_and_bias[:S] = t(sb)
+    st.r_SC[:] = T_SC.r.to(device=device, dtype=dtype)
+    st.q_SC[:] = T_SC.q.to(device=device, dtype=dtype)
+    st.hp_W[:n_landmarks, :3] = t(lms)
+    problem.state_mask[:S] = True
+    problem.lm_mask[:n_landmarks] = True
+
+    # observations: project every landmark into every frame and camera
+    lms_cpu = torch.from_numpy(lms)
+    rows = []  # (state, camera, landmark slots, noisy keypoints)
+    for si, fi in enumerate(frame_idx):
+        T_WS_i = kin.SE3(r=torch.from_numpy(traj.r[fi]), q=torch.from_numpy(traj.q[fi]))
+        for c in range(2):
+            T_CW = kin.inverse(kin.compose(T_WS_i, kin.SE3(r=T_SC.r[c], q=T_SC.q[c])))
+            uv, flags = pinhole.project(specs[c], intrinsics64[c], kin.transform_point(T_CW, lms_cpu))
+            ok = np.nonzero(flags.numpy() == pinhole.STATUS_OK)[0]
+            rows.append((si, c, ok, uv.numpy()[ok] + rng.normal(0, pixel_noise, (len(ok), 2))))
+    O = sum(len(r[2]) for r in rows)
+    if O > cfg.max_observations:
+        raise ValueError(f"{O} observations exceed the capacity {cfg.max_observations}")
+    obs = problem.obs
+    obs.state_idx[:O] = i32(np.concatenate([np.full(len(r[2]), r[0]) for r in rows]))
+    obs.cam_idx[:O] = i32(np.concatenate([np.full(len(r[2]), r[1]) for r in rows]))
+    obs.lm_idx[:O] = i32(np.concatenate([r[2] for r in rows]))
+    obs.keypoint[:O] = t(np.concatenate([r[3] for r in rows]))
+    obs.sqrt_info[:O] = 1.0 / pixel_noise
+    obs.mask[:O] = True
+
+    # IMU links between consecutive frames, preintegrated in one call
+    P, K = cfg.imu_samples, S - 1
+    ts, gy, ac, t0, t1 = [], [], [], [], []
+    for k in range(K):
+        a, b = frame_idx[k], frame_idx[k + 1]
+        sl = slice(a, min(a + P, len(traj.ts)))
+        n = sl.stop - sl.start
+        ts_k = np.full(P, traj.ts[sl][-1])
+        gy_k = np.tile(traj.gyro[sl][-1], (P, 1))
+        ac_k = np.tile(traj.acc[sl][-1], (P, 1))
+        ts_k[:n], gy_k[:n], ac_k[:n] = traj.ts[sl], traj.gyro[sl], traj.acc[sl]
+        origin = ts_k[0]
+        ts.append(ts_k - origin)
+        gy.append(gy_k)
+        ac.append(ac_k)
+        t0.append(traj.ts[a] - origin)
+        t1.append(traj.ts[b] - origin)
+    # preintegrate's arguments, in its order
+    links = dict(timestamps=np.asarray(ts), gyro=np.asarray(gy), acc=np.asarray(ac),
+                 t0=np.asarray(t0), t1=np.asarray(t1), sb_ref=sb[:K])
+    if K > 0:
+        pre = preintegrate(imu_params, *(t(v) for v in links.values()))
+        for full, part in zip(problem.imu_links.pre, pre):
+            full[:K] = part
+        problem.imu_links.idx_a[:K] = i32(np.arange(K))
+        problem.imu_links.idx_b[:K] = i32(np.arange(1, K + 1))
+        problem.imu_links.mask[:K] = True
+
+    # priors on the first state
+    pp, sp = problem.pose_priors, problem.sb_priors
+    pp.r_meas[0] = st.r_WS[0]
+    pp.q_meas[0] = st.q_WS[0]
+    pp.sqrt_info[0] = t(sqrt_information(torch.eye(6, dtype=torch.float64) * 1e8))
+    pp.mask[0] = True
+    sp.sb_meas[0] = st.speed_and_bias[0]
+    sp.sqrt_info[0] = t(sqrt_information(torch.diag(torch.tensor([1e4] * 3 + [1e2] * 6,
+                                                                  dtype=torch.float64))))
+    sp.mask[0] = True
+
+    truth = {
+        "r_WS": traj.r[frame_idx],
+        "q_WS": traj.q[frame_idx],
+        "sb": sb,
+        "landmarks": lms,
+        "n_landmarks": n_landmarks,
+        "num_obs": O,
+        "frame_idx": frame_idx,
+        "traj": traj,
+        "imu_links": links,  # each link's preintegrate inputs, rebased timestamps
+    }
+    return cfg, imu_params, [i.to(device=device, dtype=dtype) for i in intrinsics64], problem, truth
 
 
 def render_world_image(

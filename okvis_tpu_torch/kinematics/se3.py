@@ -35,7 +35,7 @@ class SE3(NamedTuple):
         T = self.r.new_zeros(batch + (4, 4))
         T[..., :3, :3] = self.C
         T[..., :3, 3] = self.r
-        T[..., 3, 3] = 1.0
+        T[..., 3, 3].fill_(1.0)
         return T
 
 

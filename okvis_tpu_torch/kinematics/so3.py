@@ -39,7 +39,7 @@ def safe_norm(v: torch.Tensor, dim=-1, keepdim=False) -> torch.Tensor:
 
 def quat_identity(batch_shape=(), dtype=torch.float64, device=None) -> torch.Tensor:
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=resolve_device(device))
-    q[..., 3] = 1.0
+    q[..., 3].fill_(1.0)  # fill_, not a copy from the host
     return q
 
 
@@ -59,8 +59,9 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    """Inverse for unit quaternions: negate the vector part."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    """Inverse for unit quaternions: negate the vector part (no host-to-device
+    copy, so the back end's loops stay free of host syncs)."""
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 quat_inverse = quat_conjugate

@@ -6,6 +6,8 @@ machine with an H100:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -194,3 +196,117 @@ def test_assignment_on_cuda_equals_cpu(cuda):
         want = mutual_best_assignment(d, 4, distance_ratio=ratio)
         got = mutual_best_assignment(d.to(cuda), 4, distance_ratio=ratio).cpu()
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- back end
+# float32 on the card against float64 on the CPU; the tolerances are those
+# chip_smoke.py states for the full window (PERF.md)
+
+
+@pytest.fixture(scope="module")
+def small_window():
+    """build_ba_problem(num_frames=4, n_landmarks=96) on the card in float32
+    and on the CPU in float64, both perturbed with seed 7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from okvis_tpu_torch.datasets.synthetic import build_ba_problem
+
+    from chip_smoke import perturb_problem
+
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        cfg, imu, intr, problem, truth = build_ba_problem(num_frames=4, n_landmarks=96, device=dev, dtype=dtype)
+        out[dev] = (cfg, imu, intr, perturb_problem(problem, truth, np.random.default_rng(7)), truth)
+    return out
+
+
+@pytest.mark.parametrize("solver", ["newton", "cholesky"])
+def test_optimize_window_on_the_card_has_no_host_sync(small_window, solver):
+    """Both dense solvers run with no host sync. In float32 the
+    Newton-Schulz solve is not backward stable once the LM damping is small
+    (its runs spread by centimetres, in the JAX package too; PERF.md), so it
+    is held to a lower cost; Cholesky to the reference gates and float64."""
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    cfg, imu, intr, problem, truth = small_window["cuda"]
+    cfg = dataclasses.replace(cfg, dense_solver=solver)
+    optimize_window(cfg, imu, intr, problem)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, diag = optimize_window(cfg, imu, intr, problem)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    S = truth["r_WS"].shape[0]
+    cost0 = float(evaluate(cfg, imu, intr, problem, problem.states).cost)
+    assert bool(torch.isfinite(states.r_WS).all()) and float(diag.final_cost) < 0.1 * cost0
+    if solver == "cholesky":
+        assert float((states.r_WS[:S].cpu().double() - torch.from_numpy(truth["r_WS"])).abs().max()) < 0.1
+        cfg64, imu64, intr64, problem64, _ = small_window["cpu"]
+        states64, _ = optimize_window(dataclasses.replace(cfg64, dense_solver=solver), imu64, intr64, problem64)
+        assert float((states.r_WS[:S].cpu().double() - states64.r_WS[:S]).abs().max()) < 0.01
+
+
+def test_preintegrate_batched_on_the_card_matches_cpu(small_window):
+    """The window's links in one call on the card, with no host sync, against
+    the float64 CPU build of the same links."""
+    from okvis_tpu_torch.imu import preintegrate
+
+    cfg, imu, _, problem, truth = small_window["cuda"]
+    links = truth["imu_links"]
+    args = [torch.as_tensor(v).to("cuda", torch.float32) for v in links.values()]
+    preintegrate(imu, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pre = preintegrate(imu, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pre64 = small_window["cpu"][3].imu_links.pre
+    K = args[0].shape[0]
+    for name in pre._fields:
+        got, want = getattr(pre, name).cpu().double(), getattr(pre64, name)[:K]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+def test_marginalize_system_on_the_card_is_psd_and_matches_cpu():
+    """A least-squares system with the VIO sparsity (tests/test_marginalization.py's
+    construction) marginalized on the card in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from okvis_tpu_torch.estimator.marginalization import marginalize_system
+    from okvis_tpu_torch.solver import WindowConfig
+    from okvis_tpu_torch.solver.assemble import NormalEqs
+
+    cfg = WindowConfig(num_states=2, num_cameras=1, max_landmarks=4, max_observations=8, max_imu_links=1)
+    D, L = cfg.dense_dim, cfg.max_landmarks
+    rng = np.random.default_rng(42)
+    rows = []
+    for lm in range(L):
+        for _ in range(12):
+            row = np.zeros(D + 3 * L)
+            row[:D] = rng.normal(size=D) * 0.3
+            row[D + 3 * lm: D + 3 * lm + 3] = rng.normal(size=3)
+            rows.append(row)
+    rows += [np.concatenate([rng.normal(size=D), np.zeros(3 * L)]) for _ in range(D + 5)]
+    J = np.stack(rows)
+    H, b = J.T @ J, J.T @ rng.normal(size=len(rows))
+    eqs = NormalEqs(
+        H_dd=H[:D, :D], b_d=b[:D],
+        H_ll=np.stack([H[D + 3 * i: D + 3 * i + 3, D + 3 * i: D + 3 * i + 3] for i in range(L)]),
+        b_l=b[D:].reshape(L, 3), W=np.stack([H[:D, D + 3 * i: D + 3 * i + 3] for i in range(L)]),
+        cost=np.asarray(0.0))
+    marg = torch.arange(D) < 15
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        e = NormalEqs(*(torch.as_tensor(x).to(dev, dtype) for x in eqs))
+        m = marg.to(dev)
+        out[dev] = marginalize_system(cfg, e, m, ~m, torch.ones(L, dtype=torch.bool, device=dev),
+                                      torch.ones((), dtype=dtype, device=dev))
+    Hc = out["cuda"].H.cpu().double()
+    w = torch.linalg.eigvalsh(Hc)
+    assert float(w.min()) >= -1e-6 * float(w.max())
+    assert float((Hc - Hc.T).abs().max()) <= 1e-6 * float(Hc.abs().max())
+    assert float(Hc[:15].abs().max()) == 0.0 and float(out["cuda"].b0[:15].abs().max()) == 0.0
+    H64 = out["cpu"].H
+    assert float((Hc - H64).abs().max()) <= 1e-3 * float(H64.abs().max())
