@@ -34,9 +34,22 @@ check them.
    with Newton-Schulz, LM with Cholesky) with host syncs raising, and holds
    each to ground truth and to the port's float64 CPU run; then the
    estimator's marginalization of state 0 (PSD, and against float64);
-9. times each back-end stage (preintegrate, propagate, evaluate, optimize,
+9. runs evaluate and optimize (LM + Newton-Schulz) twice on the same inputs
+   and requires bitwise equal normal equations, states and accept patterns
+   (the assembly sums in a fixed order);
+10. times each back-end stage (preintegrate, propagate, evaluate, optimize,
    marginalize): CUDA events, host wall clock, torch.profiler launches and
-   busy share, host syncs per call. No TPU kernel lies on this path.
+   busy share, host syncs per call. No TPU kernel lies on this path;
+11. runs the Estimator's add_states / optimize / apply_marginalization_strategy
+   loop over 39 frames of the long-run scenario (ESTIMATOR_SCENARIO) at its
+   default window (S = 9, L = 512, O = 2048, K = 8, 10 iterations) in
+   float32 on the card, for LM + Newton-Schulz (twice) and LM + Cholesky;
+   prints every frame's capacity tier, holds each run to the gates of
+   ESTIMATOR_GATES (bounded window, the last 10 frames' errors, the final
+   window against the port's float64 CPU run of the same variant) and the
+   two Newton-Schulz runs to bitwise equality, and prints one `estimator`
+   line a variant (host ms per stage, launches, syncs, busy share, tiers).
+   Neither hand kernel launches in this phase.
 
 Prints the `kernels` JSON line, and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
@@ -47,12 +60,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -94,6 +110,31 @@ OPTIMIZE_GATES = dict(
 # b0 on the scale sqrt(H_ii c0) that bounds it: float32's eigenvalue cut
 # (eps * D * lmax) drops directions of H that float64 keeps
 MARG_TOL = dict(H=1e-3, b0=0.1, c0=1e-4)
+# The evaluate of commit 7d30a3d at this window, with index_add assembly
+# (its chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed
+# beside this run's line
+INDEX_ADD_EVALUATE = dict(launches=1184, kernel_ms=1.766, host_ms=26.88)
+
+# The estimator phase: tests/test_estimator.py's long run (trajectory seed 3,
+# motion scale 0.6, 4 s) with 600 landmarks at 3-9 m (seed 4), 39 frames
+# 0.1 s apart, every second a keyframe, pixel noise 0.6 (scenario seed 11);
+# the Estimator's default window. scripts/jax_float32_estimator.py runs the
+# JAX package on the same frames.
+ESTIMATOR_SCENARIO = dict(duration=4.0, traj_seed=3, motion_scale=0.6, n_landmarks=600, lm_seed=4,
+                          radius=(3.0, 9.0), n_frames=39, seed=11, pixel_noise=0.6)
+# Gates per variant, written before the first card run: the last 10 frames'
+# newest-state errors (m, rad) and the final window's poses against the
+# port's float64 CPU run of the same variant (m, rad). LM + Cholesky takes
+# the reference gates (tests/test_estimator.py:103-104). LM + Newton-Schulz
+# takes about three times what the JAX package reaches in float32 on the CPU
+# (scripts/jax_float32_estimator.py: 0.0161 m, 0.0026 rad; LM + Cholesky
+# 0.0165 m, 0.0044 rad). Against float64: the port's float32 CPU runs end
+# within 0.009 m and 3.5e-3 rad of it.
+ESTIMATOR_GATES = dict(
+    optimize=dict(last10=(0.05, 1e-2), f64=(0.03, 1e-2)),
+    optimize_cholesky=dict(last10=(0.1, 2e-2), f64=(0.03, 1e-2)),
+)
+ESTIMATOR_PROFILE_FRAMES = (20, 25)  # frame ids [a, b) under torch.profiler
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # Operations a second by class, without FMA. The data sheet's 67 TFLOP/s in
@@ -683,6 +724,7 @@ def check_backend(dev, sync_free):
     check_preintegrate(out["preintegrate"], window64[3].imu_links.pre)
     check_optimize({name: out[name] for name in OPTIMIZE_GATES}, (cfg, imu, intr, problem), window64, truth)
     eqs, stages["marginalize"] = check_marginalize((cfg, imu, intr, problem), window64, out["optimize"][0])
+    check_deterministic(cfg, imu, intr, problem, out["optimize"], sync_free)
     stages["evaluate"] = lambda: evaluate(cfg, imu, intr, problem, problem.states)
     return stages, eqs, cfg
 
@@ -761,7 +803,217 @@ def time_backend(stages, eqs, cfg) -> dict:
     opt["share_evaluate"] = (cfg.max_iterations + 1) * out["evaluate"]["kernel_ms"] / opt["kernel_ms"]
     for row in out.values():
         print("backend", json.dumps(row))
+    ev = out["evaluate"]
+    print("backend_evaluate_assembly", json.dumps(dict(
+        fixed_order={k: ev[k] for k in ("launches", "kernel_ms", "host_ms", "device_ms")},
+        index_add_7d30a3d=INDEX_ADD_EVALUATE)))
     return out
+
+
+def check_deterministic(cfg, imu, intr, problem, first_opt, sync_free) -> dict:
+    """evaluate twice and LM + Newton-Schulz optimize once more on the same
+    inputs, inside `sync_free()`: the normal equations, the states and the
+    accept pattern must be bitwise equal to the first calls."""
+    import torch
+
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    with sync_free():
+        e1, e2 = (evaluate(cfg, imu, intr, problem, problem.states) for _ in range(2))
+        states, diag = optimize_window(cfg_of("optimize", cfg), imu, intr, problem)
+    states0, diag0 = first_opt
+    same = dict(
+        evaluate={name: torch.equal(a, b) for name, a, b in zip(e1._fields, e1, e2)},
+        optimize={name: torch.equal(a, b) for name, a, b in zip(states._fields, states, states0)},
+        accepted=torch.equal(diag.accepted, diag0.accepted),
+        cost_history=torch.equal(diag.cost_history, diag0.cost_history),
+    )
+    print("backend_determinism", json.dumps(same))
+    if not (all(same["evaluate"].values()) and all(same["optimize"].values()) and same["accepted"]
+            and same["cost_history"]):
+        raise SmokeError(f"two runs on the same inputs differ: {same}")
+    return same
+
+
+def estimator_frames():
+    """The estimator phase's frames and landmark initial positions
+    (ESTIMATOR_SCENARIO), numpy, made on the CPU."""
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets import synthetic
+
+    s = ESTIMATOR_SCENARIO
+    traj = synthetic.simulate_trajectory(duration=s["duration"], seed=s["traj_seed"], motion_scale=s["motion_scale"])
+    lms = synthetic.make_landmarks(traj, s["n_landmarks"], seed=s["lm_seed"], radius=s["radius"])
+    specs, T_SC, intr = synthetic.euroc_stereo_rig(device="cpu")
+    return synthetic.estimator_scenario(traj, lms, NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr),
+                                        s["n_frames"], seed=s["seed"], pixel_noise=s["pixel_noise"])
+
+
+def run_estimator(variant: str, dev: str, dtype, frames, init, profile: bool = False):
+    """The loop a runtime drives, one frame at a time: add_states (+ the
+    frame's landmarks and observations), optimize, marginalize, on `dev` in
+    `dtype`. Per frame: host ms of each stage (each ends in a device sync),
+    the optimize's capacity tier, syncstats counts, the newest state's
+    errors, the window's size. With `profile`, the frames of
+    ESTIMATOR_PROFILE_FRAMES run under torch.profiler (their host times are
+    left out of the statistics). Returns (estimator, per-frame rows,
+    profile summary or None)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, feed_estimator_frame
+    from okvis_tpu_torch.estimator import Estimator
+    from okvis_tpu_torch.imu import ImuParams
+    from okvis_tpu_torch.utils import syncstats
+
+    specs, T_SC, intr = euroc_stereo_rig(device=dev)
+    est = Estimator(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr), ImuParams.euroc(dtype, dev), 5, 3,
+                    device=dev, dtype=dtype)
+    est.cfg = cfg_of(variant, est.cfg)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    rows, prof, summary = [], None, None
+    a, b = ESTIMATOR_PROFILE_FRAMES
+    for f in frames:
+        if profile and f.frame_id == a:
+            sync()
+            # device activity only: the CPU operator events of ~200,000
+            # launches take minutes to aggregate
+            prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        syncstats.reset()
+        sync()
+        t0 = time.perf_counter()
+        sid = feed_estimator_frame(est, f, init)
+        sync()
+        t1 = time.perf_counter()
+        tier = est._select_tier()
+        est.optimize()
+        sync()
+        t2 = time.perf_counter()
+        est.apply_marginalization_strategy()
+        sync()
+        t3 = time.perf_counter()
+        T = est.get_T_WS(sid)
+        dq = kin.quat_multiply(kin.quat_conjugate(T.q), torch.from_numpy(f.q_WS))
+        rows.append(dict(
+            frame=f.frame_id, tier="full" if tier is None else f"{tier['L']}x{tier['O']}",
+            add_ms=1e3 * (t1 - t0), optimize_ms=1e3 * (t2 - t1), marginalize_ms=1e3 * (t3 - t2),
+            syncs=syncstats.snapshot(), profiled=prof is not None,
+            position=float(np.linalg.norm(T.r.numpy() - f.r_WS)),
+            orientation=float(2 * np.arccos(min(1.0, abs(float(dq[3]))))),
+            frames=est.num_frames(), links=len(est.imu_links)))
+        if prof is not None and f.frame_id == b - 1:
+            wall_ms = 1e3 * (time.perf_counter() - t_prof)
+            prof.__exit__(None, None, None)
+            kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+            kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            summary = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms, device_busy_share=kernel_ms / wall_ms,
+                           launches_per_frame=sum(e.count for e in kernels) / (b - a))
+            prof = None
+    return est, rows, summary
+
+
+def estimator_reference(variant: str) -> dict:
+    """A worker process's job: the port's float64 CPU run of a variant over
+    the estimator phase's frames, on half the host's cores; its final
+    window."""
+    import os
+
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    frames, init = estimator_frames()
+    return estimator_window(run_estimator(variant, "cpu", torch.float64, frames, init)[0])
+
+
+def estimator_window(est) -> dict:
+    """The final window as float64 numpy: slot tables and the prior."""
+    import torch
+
+    H = est.marg_H
+    return dict(r_WS=est.r_WS.copy(), q_WS=est.q_WS.copy(), sb=est.sb.copy(), hp_W=est.hp_W.copy(),
+                marg_H=H.detach().cpu().double().numpy() if isinstance(H, torch.Tensor) else np.array(H),
+                slots=sorted(s.slot for s in est.states.values()))
+
+
+def estimator_line(variant: str, rows, summary) -> dict:
+    """The `estimator` JSON line of a variant: host ms per stage (median,
+    max) after two warm-up frames and outside the profiled frames, syncs a
+    frame by counter, the profiled frames' launches and busy share, the
+    tiers."""
+    timed = [r for r in rows[2:] if not r["profiled"]]
+    counters = sorted({k for r in rows[2:] for k in r["syncs"]})
+    line = dict(variant=variant, frames=len(rows), timed_frames=len(timed))
+    for key in ("add_ms", "optimize_ms", "marginalize_ms"):
+        vals = [r[key] for r in timed]
+        line[key] = dict(median=statistics.median(vals), max=max(vals))
+    line["frame_ms_median"] = statistics.median(r["add_ms"] + r["optimize_ms"] + r["marginalize_ms"] for r in timed)
+    line["syncs_per_frame"] = {k: sum(r["syncs"].get(k, 0) for r in rows[2:]) / len(rows[2:]) for k in counters}
+    line["profile"] = summary
+    line["tiers"] = [r["tier"] for r in rows]
+    line["last10_position"] = max(r["position"] for r in rows[-10:])
+    line["last10_orientation"] = max(r["orientation"] for r in rows[-10:])
+    return line
+
+
+def check_estimator() -> None:
+    """The estimator phase (ESTIMATOR_SCENARIO): each variant on the card in
+    float32 and on the CPU in float64; gates of ESTIMATOR_GATES; the two
+    card runs of LM + Newton-Schulz bitwise equal; at least one frame at the
+    full (512, 2048) tier and one at a reduced tier; neither hand kernel
+    launched."""
+    import torch
+
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    frames, init = estimator_frames()
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    runs = {}
+    # The float64 CPU references run in two worker processes while the card
+    # repeats LM + Newton-Schulz (a run whose times are not reported); the
+    # timed card runs have the host to themselves.
+    runs["optimize"] = run_estimator("optimize", "cuda", torch.float32, frames, init, profile=True)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        refs = {v: pool.submit(estimator_reference, v) for v in ESTIMATOR_GATES}
+        rerun = estimator_window(run_estimator("optimize", "cuda", torch.float32, frames, init)[0])
+        refs = {v: f.result() for v, f in refs.items()}
+    print(f"estimator_reference_seconds {time.perf_counter() - t0:.2f}")
+    runs["optimize_cholesky"] = run_estimator("optimize_cholesky", "cuda", torch.float32, frames, init, profile=True)
+    for variant, gates in ESTIMATOR_GATES.items():
+        est, rows, summary = runs[variant]
+        print("estimator_frames", json.dumps(dict(variant=variant, frames=[
+            {k: r[k] for k in ("frame", "tier", "frames", "links", "position", "orientation")} for r in rows])))
+        line = estimator_line(variant, rows, summary)
+        win, ref = estimator_window(est), refs[variant]
+        if not isinstance(est.marg_H, torch.Tensor) or est.marg_H.device.type != "cuda":
+            raise SmokeError(f"{variant}: the marginal prior left the card")
+        if variant == "optimize":  # the same variant again: bit for bit
+            line["bitwise_equal_rerun"] = {k: bool(np.array_equal(win[k], rerun[k])) for k in win}
+        sl = win["slots"]
+        line["f64_position"], line["f64_orientation"] = pose_errors(
+            SimpleNamespace(r_WS=torch.from_numpy(win["r_WS"][sl]), q_WS=torch.from_numpy(win["q_WS"][sl])),
+            ref["r_WS"][ref["slots"]], ref["q_WS"][ref["slots"]])
+        print("estimator", json.dumps(line))
+        bounded = all(r["frames"] <= 9 and r["links"] <= 8 for r in rows)
+        tiers = set(line["tiers"])
+        if not (bounded and rows[-1]["frames"] == 8 and est.marg_valid and len(rows) == len(frames)):
+            raise SmokeError(f"{variant}: the window is not bounded as the reference's: {rows[-1]}")
+        if "full" not in tiers or len(tiers) < 2:
+            raise SmokeError(f"{variant}: tiers {sorted(tiers)}, not the full one and a reduced one")
+        if not (line["last10_position"] < gates["last10"][0] and line["last10_orientation"] < gates["last10"][1]):
+            raise SmokeError(f"{variant} misses its gates {gates['last10']}: {line}")
+        if not (line["f64_position"] <= gates["f64"][0] and line["f64_orientation"] <= gates["f64"][1]):
+            raise SmokeError(f"{variant} differs from the float64 CPU run beyond {gates['f64']}: {line}")
+        if "bitwise_equal_rerun" in line and not all(line["bitwise_equal_rerun"].values()):
+            raise SmokeError(f"two card runs of {variant} differ: {line['bitwise_equal_rerun']}")
+    launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+    print("estimator_kernel_launches", json.dumps(launches))
 
 
 def kernel_resources(build_log: str, lib) -> dict:
@@ -805,6 +1057,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
+    t_start = time.perf_counter()
     frontend = build_frontend("cuda")
     traj, lms, idx = scenario(N_FRAMES)
     frames = render_frames(frontend, traj, lms, idx)
@@ -840,10 +1093,15 @@ def main() -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    print(f"vision_seconds {time.perf_counter() - t_start:.2f}")
     t0 = time.perf_counter()
     stages, eqs, cfg = check_backend("cuda", sync_free)
     time_backend(stages, eqs, cfg)
     print(f"backend_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    check_estimator()
+    print(f"estimator_seconds {time.perf_counter() - t0:.2f}")
+    print(f"smoke_seconds {time.perf_counter() - t_start:.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The port never imports okvis_tpu; a caller holding okvis_tpu objects passes
 their numpy arrays and Python values here (the parity tests do so to give
-both packages the same rig, configuration, IMU parameters and window).
+both packages the same rig, configuration, IMU parameters, window and
+estimator state).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from .cameras.ncamera import NCameraSystem
 from .cameras.pinhole import CameraSpec
 from .device import resolve_device
+from .estimator.estimator import Estimator, ImuLinkRecord, LandmarkRecord, Observation, StateRecord, _host
 from .frontend.frontend import FrontendConfig
 from .imu.preintegration import ImuParams, PreintegratedImu
 from .kinematics import SE3
@@ -148,3 +150,71 @@ def problem_to_numpy(problem: BaProblem) -> dict:
         return {k: conv(v) for k, v in node._asdict().items()}
 
     return conv(problem)
+
+
+# the estimator's float64 tables: slot-indexed variables, FEJ points, prior
+_ESTIMATOR_ARRAYS = ("r_WS", "q_WS", "sb", "hp_W", "r_SC", "q_SC", "fej_r_WS", "fej_q_WS", "fej_sb", "fej_r_SC",
+                     "fej_q_SC", "marg_H", "marg_b0")
+
+
+def estimator_to_numpy(est) -> dict:
+    """The host state of an Estimator of either package as plain values and
+    numpy arrays: the slot tables and FEJ points, the marginal prior (read
+    back if it is on a device), the state, landmark, observation, IMU-link
+    and prior records, the free-slot lists, and the window sizes. The
+    fields are the JAX package's checkpoint fields less the per-state
+    extrinsics ones. A deferred propagation is committed first."""
+    est.resolve_pending_prop()
+    rec = dataclasses.asdict
+    return dict(
+        num_keyframes=int(est.num_keyframes),
+        num_imu_frames=int(est.num_imu_frames),
+        states=[rec(s) for s in est.states.values()],
+        landmarks=[rec(lm) for lm in est.landmarks.values()],
+        _lm_slot_to_id={int(k): int(v) for k, v in est._lm_slot_to_id.items()},
+        _free_state_slots=[int(s) for s in est._free_state_slots],
+        _free_lm_slots=[int(s) for s in est._free_lm_slots],
+        observations=[dict(lm_id=o.lm_id, pose_id=o.pose_id, cam_idx=o.cam_idx, keypoint_idx=o.keypoint_idx,
+                           keypoint=np.array(o.keypoint, np.float64), size=float(o.size))
+                      for o in est.observations],
+        imu_links=[dict(id_a=l.id_a, id_b=l.id_b, ts=np.array(l.ts, np.float64), gyro=np.array(l.gyro, np.float64),
+                        acc=np.array(l.acc, np.float64), t0=float(l.t0), t1=float(l.t1)) for l in est.imu_links],
+        pose_priors=[{k: (v if k == "pose_id" else _host(v)) for k, v in pr.items()} for pr in est.pose_priors],
+        sb_priors=[{k: (v if k == "pose_id" else _host(v)) for k, v in pr.items()} for pr in est.sb_priors],
+        **{k: _host(getattr(est, k)) for k in _ESTIMATOR_ARRAYS},
+        marg_c0=float(_host(est.marg_c0)),
+        marg_valid=bool(est.marg_valid),
+        fej_ext_frozen=bool(est.fej_ext_frozen),
+    )
+
+
+def estimator_from_numpy(values: dict, rig: NCameraSystem, imu_params: ImuParams, cfg: WindowConfig,
+                         device=None, dtype: torch.dtype = torch.float64) -> Estimator:
+    """The port's Estimator holding the host state of estimator_to_numpy's
+    output (e.g. a JAX Estimator read mid-run): the same slots, ids, records,
+    FEJ points and marginal prior, so both packages continue from the same
+    window. The observation-count map and the packed observation mirror are
+    rebuilt from the records."""
+    est = Estimator(rig, imu_params, values["num_keyframes"], values["num_imu_frames"], cfg=cfg,
+                    dtype=dtype, device=device)
+    est.states = {s["id"]: StateRecord(**s) for s in values["states"]}
+    est.landmarks = {lm["id"]: LandmarkRecord(**lm) for lm in values["landmarks"]}
+    est._lm_slot_to_id = dict(values["_lm_slot_to_id"])
+    est._free_state_slots = list(values["_free_state_slots"])
+    est._free_lm_slots = list(values["_free_lm_slots"])
+    est.observations = [Observation(**{**o, "keypoint": np.array(o["keypoint"], np.float64)})
+                        for o in values["observations"]]
+    est.imu_links = [ImuLinkRecord(**{k: np.array(v, np.float64) if isinstance(v, np.ndarray) else v
+                                      for k, v in l.items()}) for l in values["imu_links"]]
+    est.pose_priors = [{k: (v if k == "pose_id" else np.array(v, np.float64)) for k, v in pr.items()}
+                       for pr in values["pose_priors"]]
+    est.sb_priors = [{k: (v if k == "pose_id" else np.array(v, np.float64)) for k, v in pr.items()}
+                     for pr in values["sb_priors"]]
+    for k in _ESTIMATOR_ARRAYS:
+        setattr(est, k, np.array(values[k], np.float64))
+    est.marg_c0 = float(values["marg_c0"])
+    est.marg_valid = bool(values["marg_valid"])
+    est.fej_ext_frozen = bool(values["fej_ext_frozen"])
+    est._rebuild_obs_count()
+    est._obs_cols.rebuild(est.observations, est.states, est.landmarks)
+    return est

@@ -343,3 +343,92 @@ def render_world_image(
             continue
         img[y - half : y + half + 1, x - half : x + half + 1] += textures[li]
     return np.clip(img, 0, 255)
+
+
+@dataclasses.dataclass
+class EstimatorFrame:
+    """One frame of a synthetic estimator run: what a frontend would hand
+    the Estimator (numpy only)."""
+
+    frame_id: int
+    t: float  # seconds
+    imu: Tuple[np.ndarray, np.ndarray, np.ndarray]  # (ts, gyro, acc) slice
+    keyframe: bool
+    # (landmark id, camera, noisy keypoint (2,), keypoint index) of every
+    # camera that sees the landmark, grouped by landmark
+    observations: list
+    r_WS: np.ndarray  # ground truth
+    q_WS: np.ndarray
+
+
+def estimator_scenario(
+    traj: SyntheticImu,
+    landmarks: np.ndarray,
+    rig,
+    n_frames: int,
+    seed: int,
+    frame_dt: float = 0.1,
+    imu_rate: int = 200,
+    pixel_noise: float = 0.6,
+    init_noise: float = 0.05,
+    keep: float = 1.0,
+    lm_id0: int = 10_000,
+):
+    """The synthetic frontend of the JAX package's estimator tests
+    (tests/test_estimator.py): frame i at t = i * frame_dt with the IMU
+    samples from 24 before to 5 after it, every second frame a keyframe,
+    each landmark projected into every camera at the true pose (the rig's
+    projection on the CPU in float64) and observed with pixel noise.
+
+    Returns (frames, init): `init` maps a landmark id to its noisy initial
+    position, drawn once, at its first stereo sighting. After the first
+    frame each visible landmark is kept with probability `keep` (the rest
+    model a frontend's missed matches, so landmarks leave the window). Frame
+    ids are 1, 2, ...: pass them to add_states so two estimators agree."""
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(np.asarray(landmarks, np.float64))
+    T_SC = kin.SE3(r=rig.T_SC.r.detach().cpu().double(), q=rig.T_SC.q.detach().cpu().double())
+    intr = [i.detach().cpu().double() for i in rig.intrinsics]
+    frames, init = [], {}
+    for fi in range(n_frames):
+        t = fi * frame_dt
+        idx = int(round(t * imu_rate))
+        lo, hi = max(0, idx - 24), min(len(traj.ts), idx + 5)
+        T_WS = kin.SE3(r=torch.from_numpy(traj.r[idx]), q=torch.from_numpy(traj.q[idx]))
+        uv, ok = [], []
+        for c in range(len(rig.specs)):
+            T_CW = kin.inverse(kin.compose(T_WS, kin.SE3(r=T_SC.r[c], q=T_SC.q[c])))
+            u, flags = pinhole.project(rig.specs[c], intr[c], kin.transform_point(T_CW, pts))
+            uv.append(u.numpy())
+            ok.append(flags.numpy() == pinhole.STATUS_OK)
+        obs = []
+        for li in range(len(landmarks)):
+            vis = [c for c in range(len(rig.specs)) if ok[c][li]]
+            if not vis or (fi and rng.uniform() > keep):
+                continue
+            lm_id = lm_id0 + li
+            if lm_id not in init and len(vis) >= 2:
+                init[lm_id] = landmarks[li] + rng.normal(0, init_noise, 3)
+            obs.append([(lm_id, c, uv[c][li] + rng.normal(0, pixel_noise, 2), li) for c in vis])
+        frames.append(EstimatorFrame(
+            frame_id=fi + 1, t=t, imu=(traj.ts[lo:hi], traj.gyro[lo:hi], traj.acc[lo:hi]),
+            keyframe=fi % 2 == 0, observations=obs, r_WS=traj.r[idx], q_WS=traj.q[idx]))
+    return frames, init
+
+
+def feed_estimator_frame(est, frame: EstimatorFrame, init: dict) -> int:
+    """add_states for the frame, then its landmarks and observations, as the
+    estimator tests' frontend does: a landmark is added at its first stereo
+    sighting (or again after the estimator removed it), never while the
+    landmark table is full; an estimator of either package. Returns the new
+    state's id."""
+    sid = est.add_states(frame.t, *frame.imu, as_keyframe=frame.keyframe, frame_id=frame.frame_id)
+    for group in frame.observations:
+        lm_id = group[0][0]
+        if not est.is_landmark_added(lm_id):
+            if len(group) < 2 or lm_id not in init or not est._free_lm_slots:
+                continue
+            est.add_landmark(lm_id, init[lm_id])
+        for _lm, c, uv, li in group:
+            est.add_observation(lm_id, sid, c, uv, keypoint_idx=li, size=8.0)
+    return sid

@@ -1,4 +1,6 @@
-"""Sliding-window estimator (port of okvis_tpu.estimator): so far the
-marginalization math; the Estimator class is not ported yet."""
+"""Sliding-window estimator (port of okvis_tpu.estimator): the Estimator's
+host bookkeeping over the port's device programs, and the marginalization
+math."""
 
+from .estimator import Estimator, LandmarkRecord, Observation, StateRecord  # noqa: F401
 from .marginalization import MargResult, marginalize_system, pinv_sym  # noqa: F401

@@ -12,6 +12,10 @@ complement (port of okvis_tpu.estimator.marginalization).
 The selection arrives as masks; shapes never change. ``torch.linalg.eigh``
 checks its result on the host, so each call synchronises with the card
 three times (the landmark batch, the dense block, the PSD projection).
+Where the float32 decomposition fails to converge on a finite symmetric
+matrix (LAPACK's ssyevd does so at the estimator's full window, depending
+on its thread count), it is redone in float64; the JAX package's eigh
+returns NaN there instead.
 """
 
 from __future__ import annotations
@@ -22,6 +26,16 @@ import torch
 
 from ..solver.assemble import NormalEqs
 from ..solver.structure import WindowConfig
+
+
+def _eigh(A: torch.Tensor):
+    """torch.linalg.eigh, redone in float64 (and cast back) where it fails
+    to converge."""
+    try:
+        return torch.linalg.eigh(A)
+    except torch.linalg.LinAlgError:
+        w, V = torch.linalg.eigh(A.to(torch.float64))
+        return w.to(A.dtype), V.to(A.dtype)
 
 
 def pinv_sym(A: torch.Tensor, active_mask: torch.Tensor = None) -> torch.Tensor:
@@ -38,7 +52,7 @@ def pinv_sym(A: torch.Tensor, active_mask: torch.Tensor = None) -> torch.Tensor:
     p = torch.where(diag > 1e-9, torch.sqrt(diag.abs() + 1e-300), torch.full_like(diag, 1e-3))
     p_inv = 1.0 / p
     As = A * p_inv[..., :, None] * p_inv[..., None, :]
-    w, V = torch.linalg.eigh(0.5 * (As + As.mT))
+    w, V = _eigh(0.5 * (As + As.mT))
     tol = torch.finfo(dtype).eps * n * w.amax(dim=-1, keepdim=True)
     keep = w > tol
     w_pinv = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)), torch.zeros_like(w))
@@ -90,7 +104,7 @@ def marginalize_system(
     # indefinite and b can leave range(H), and the prior cost then has
     # unbounded-below directions. Project H to PSD, b onto range(H), and
     # make c0 >= b^T H^+ b, so the prior is exactly |e0 + J dchi|^2 / 2.
-    w, V = torch.linalg.eigh(H_new)
+    w, V = _eigh(H_new)
     keep = w > torch.finfo(dtype).eps * D * torch.clamp(w.max(), min=0.0)
     w_pos = torch.where(keep, w, torch.zeros_like(w))
     coeff_in = torch.where(keep, V.T @ b_new, torch.zeros_like(w))

@@ -2,12 +2,17 @@
 okvis_tpu.solver.assemble).
 
 All reprojection factors evaluate in one batched pass per camera (selected
-by cam_idx), the IMU links and priors in one batched pass each. Where the
-JAX package assembles with one-hot matmuls (the TPU's way to avoid
-scatters; the observation one-hot alone is O x 12 x D, 14.5 MB at the
-estimator's full window in float32), the port adds each factor's small
-J^T J and J^T r blocks into H and b with ``index_add``, and never builds a
-one-hot.
+by cam_idx), the IMU links and priors in one batched pass each. The
+assembly gives the same bits on every run: no float sum goes through an
+atomic scatter. Each factor's Jacobian is laid out as dense rows over the D
+dense columns, and H = R^T R, b = -R^T r is one matrix product; the landmark
+blocks H_ll, b_l and the coupling W are grouped by landmark slot with a
+one-hot (O, L) product, as the JAX package does. The observations' rows are
+written with a scatter whose indices never repeat (the pose and extrinsics
+columns of one observation are distinct), so the (O, 12, D) observation
+one-hot of the JAX package (14.5 MB at the estimator's full window in
+float32) is never built; the dense factors' few rows use the one-hot
+product, so repeated columns add up as in JAX.
 
 Gauss-Newton convention: cost = sum rho(|r|^2) / 2; H delta = b with
 H = sum J^T J (robustly weighted), b = -sum J^T r. The Cauchy robustifier
@@ -54,18 +59,17 @@ def marg_delta_chi(cfg: WindowConfig, states: WindowStates, marg: MargPrior) -> 
     return torch.cat([torch.cat([d_pose, d_sb], dim=-1).reshape(-1), d_ext.reshape(-1)])
 
 
-def add_factor_blocks(H: torch.Tensor, b: torch.Tensor, J: torch.Tensor, res: torch.Tensor,
-                      cols: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """H[cols_i, cols_j] += sum_rows J_i J_j and b[cols] -= J^T res for a
-    batch of factors: J (N, m, k), res (N, m), cols (N, k) dense columns.
-    The scatter form of the JAX package's one-hot products (repeated columns
-    add up in both)."""
-    D = H.shape[0]
-    JtJ = J.mT @ J  # (N, k, k)
-    Jtr = (J.mT @ res[..., None])[..., 0]  # (N, k)
-    cells = (cols[:, :, None] * D + cols[:, None, :]).reshape(-1)
-    H = H.reshape(-1).index_add(0, cells, JtJ.reshape(-1)).reshape(D, D)
-    return H, b.index_add(0, cols.reshape(-1), -Jtr.reshape(-1))
+def factor_rows(J: torch.Tensor, cols: torch.Tensor, D: int) -> torch.Tensor:
+    """Dense Jacobian rows (N, m, D) of N factors: J (N, m, k) at dense
+    columns cols (N, k), by a one-hot product (repeated columns add up)."""
+    return J @ torch.nn.functional.one_hot(cols.to(torch.int64), D).to(J.dtype)
+
+
+def normal_eqs_of_rows(rows: torch.Tensor, res: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H = R^T R and b = -R^T r for the factors' dense rows (N, m, D) and
+    residuals (N, m): two matrix products, summed in a fixed order."""
+    R = rows.reshape(-1, rows.shape[-1])
+    return R.mT @ R, -(R.mT @ res.reshape(-1))
 
 
 def evaluate_reprojection(cfg: WindowConfig, intrinsics: List[torch.Tensor], obs: Observations,
@@ -104,20 +108,24 @@ def evaluate_reprojection(cfg: WindowConfig, intrinsics: List[torch.Tensor], obs
     J_hp = J_hp * scale
     J_ext = J_ext * scale if cfg.estimate_extrinsics else torch.zeros_like(J_ext)
 
-    # dense 12-column block per observation: [pose(6) | extrinsics(6)]
+    # dense 12-column block per observation: [pose(6) | extrinsics(6)],
+    # scattered into its row of D columns (the 12 columns never repeat)
     col6 = torch.arange(6, dtype=torch.int64, device=device)
     cols = torch.cat([obs.state_idx[:, None] * 15 + col6, S * 15 + obs.cam_idx[:, None] * 6 + col6], dim=1)
     J12 = torch.cat([J_pose, J_ext], dim=-1)  # (O, 2, 12)
-    H_dd, b_d = add_factor_blocks(torch.zeros((D, D), dtype=dtype, device=device),
-                                  torch.zeros((D,), dtype=dtype, device=device), J12, res, cols)
+    J_full = torch.zeros((O, 2, D), dtype=dtype, device=device).scatter_(
+        2, cols[:, None, :].expand(O, 2, 12), J12)
+    H_dd, b_d = normal_eqs_of_rows(J_full, res)
 
-    # landmark blocks and the dense-landmark coupling, added per landmark slot
-    lm = obs.lm_idx.to(torch.int64)
-    H_ll = torch.zeros((L, 3, 3), dtype=dtype, device=device).index_add(0, lm, J_hp.mT @ J_hp)
-    b_l = torch.zeros((L, 3), dtype=dtype, device=device).index_add(0, lm, -(J_hp.mT @ res[..., None])[..., 0])
-    WD = J12.mT @ J_hp  # (O, 12, 3)
-    W = torch.zeros((L * D, 3), dtype=dtype, device=device).index_add(
-        0, (lm[:, None] * D + cols).reshape(-1), WD.reshape(-1, 3)).reshape(L, D, 3)
+    # landmark blocks and the dense-landmark coupling, grouped by landmark
+    # slot with one one-hot product
+    M = (obs.lm_idx.to(torch.int64)[:, None] == torch.arange(L, device=device)).to(dtype) * m  # (O, L)
+    per_obs = torch.cat([(J_full.mT @ J_hp).reshape(O, D * 3), (J_hp.mT @ J_hp).reshape(O, 9),
+                         -(J_hp.mT @ res[..., None]).reshape(O, 3)], dim=1)
+    by_lm = M.mT @ per_obs  # (L, 3 D + 12)
+    W = by_lm[:, : D * 3].reshape(L, D, 3)
+    H_ll = by_lm[:, D * 3: D * 3 + 9].reshape(L, 3, 3)
+    b_l = by_lm[:, D * 3 + 9:]
     return H_dd, b_d, H_ll, b_l, W, cost
 
 
@@ -126,8 +134,6 @@ def evaluate_dense_factors(cfg: WindowConfig, imu_params: ImuParams, problem: Ba
     """IMU links + priors + marginal prior -> (H_dd, b_d, cost)."""
     dtype, device = states.r_WS.dtype, states.r_WS.device
     D = cfg.dense_dim
-    H_dd = torch.zeros((D, D), dtype=dtype, device=device)
-    b_d = torch.zeros((D,), dtype=dtype, device=device)
     col15 = torch.arange(15, dtype=torch.int64, device=device)
 
     # IMU link factors: 30 dense columns pose_a(6) sb_a(9) pose_b(6) sb_b(9)
@@ -141,7 +147,6 @@ def evaluate_dense_factors(cfg: WindowConfig, imu_params: ImuParams, problem: Ba
     cost = 0.5 * torch.sum(imu_res * imu_res)
     J30 = torch.cat([imu_J.J_pose0, imu_J.J_sb0, imu_J.J_pose1, imu_J.J_sb1], dim=-1) * lmf[:, None, None]
     cols = torch.cat([ia[:, None] * 15 + col15, ib[:, None] * 15 + col15], dim=1)
-    H_dd, b_d = add_factor_blocks(H_dd, b_d, J30, imu_res, cols)
 
     # pose priors
     pp = problem.pose_priors
@@ -150,8 +155,6 @@ def evaluate_dense_factors(cfg: WindowConfig, imu_params: ImuParams, problem: Ba
     ppm = pp.mask.to(dtype)
     pp_res = pp_res * ppm[:, None]
     cost = cost + 0.5 * torch.sum(pp_res * pp_res)
-    H_dd, b_d = add_factor_blocks(H_dd, b_d, pp_J * ppm[:, None, None], pp_res,
-                                  pp.state_idx[:, None] * 15 + col15[:6])
 
     # speed/bias priors
     sp = problem.sb_priors
@@ -159,8 +162,15 @@ def evaluate_dense_factors(cfg: WindowConfig, imu_params: ImuParams, problem: Ba
     spm = sp.mask.to(dtype)
     sp_res = sp_res * spm[:, None]
     cost = cost + 0.5 * torch.sum(sp_res * sp_res)
-    H_dd, b_d = add_factor_blocks(H_dd, b_d, sp_J * spm[:, None, None], sp_res,
-                                  sp.state_idx[:, None] * 15 + col15[6:])
+
+    # every dense factor's rows in one product
+    rows = torch.cat([
+        factor_rows(J30, cols, D).reshape(-1, D),
+        factor_rows(pp_J * ppm[:, None, None], pp.state_idx[:, None] * 15 + col15[:6], D).reshape(-1, D),
+        factor_rows(sp_J * spm[:, None, None], sp.state_idx[:, None] * 15 + col15[6:], D).reshape(-1, D),
+    ])
+    H_dd, b_d = normal_eqs_of_rows(rows, torch.cat([imu_res.reshape(-1), pp_res.reshape(-1),
+                                                    sp_res.reshape(-1)]))
 
     # marginalization prior
     marg = problem.marg

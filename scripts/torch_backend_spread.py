@@ -5,11 +5,12 @@
 
 Builds chip_smoke.py's back-end window (BACKEND_WINDOW, float32 on the
 card, perturbed with numpy seed 7) and runs each optimize variant of
-chip_smoke.OPTIMIZE_GATES `--runs` times on the same inputs. `index_add`
-sums with atomics, so each run adds in another order; the script prints,
-per variant, the min, median and max of the final position, orientation
-and speed/bias errors against ground truth and of the final cost, and the
-distinct accept patterns. Needs a card; it raises without one.
+chip_smoke.OPTIMIZE_GATES `--runs` times on the same inputs. The assembly
+sums in a fixed order (no atomics), so every run should give the same
+result; the script prints, per variant, the min, median and max of the
+final position, orientation and speed/bias errors against ground truth and
+of the final cost, and the distinct accept patterns, which shows whether
+it does. Needs a card; it raises without one.
 """
 
 import argparse

@@ -310,3 +310,36 @@ def test_marginalize_system_on_the_card_is_psd_and_matches_cpu():
     assert float(Hc[:15].abs().max()) == 0.0 and float(out["cuda"].b0[:15].abs().max()) == 0.0
     H64 = out["cpu"].H
     assert float((Hc - H64).abs().max()) <= 1e-3 * float(H64.abs().max())
+
+
+def test_evaluate_and_optimize_on_the_card_are_bitwise_repeatable(small_window):
+    """The assembly sums in a fixed order: two evaluates, and two LM +
+    Newton-Schulz optimizes, of the same inputs give the same bits."""
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    cfg, imu, intr, problem, _ = small_window["cuda"]
+    e1, e2 = (evaluate(cfg, imu, intr, problem, problem.states) for _ in range(2))
+    for name, a, b in zip(e1._fields, e1, e2):
+        assert torch.equal(a, b), name
+    (s1, d1), (s2, d2) = (optimize_window(cfg, imu, intr, problem) for _ in range(2))
+    for name, a, b in zip(s1._fields, s1, s2):
+        assert torch.equal(a, b), name
+    assert torch.equal(d1.accepted, d2.accepted) and torch.equal(d1.cost_history, d2.cost_history)
+
+
+def test_estimator_on_the_card_matches_cpu_float64(cuda):
+    """Six frames of chip_smoke.py's estimator scenario through add_states /
+    optimize / marginalize on the card in float32, against the port's
+    float64 CPU run of the same frames; the prior stays on the card."""
+    from chip_smoke import ESTIMATOR_GATES, estimator_frames, estimator_window, run_estimator
+
+    frames, init = estimator_frames()
+    est, rows, _ = run_estimator("optimize", "cuda", torch.float32, frames[:6], init)
+    ref_est, ref_rows, _ = run_estimator("optimize", "cpu", torch.float64, frames[:6], init)
+    assert [r["tier"] for r in rows] == [r["tier"] for r in ref_rows]
+    assert isinstance(est.marg_H, torch.Tensor) and est.marg_H.device.type == "cuda" and est.marg_valid
+    win, ref = estimator_window(est), estimator_window(ref_est)
+    assert win["slots"] == ref["slots"]
+    tol_m, _ = ESTIMATOR_GATES["optimize"]["f64"]
+    sl = win["slots"]
+    assert np.abs(win["r_WS"][sl] - ref["r_WS"][sl]).max() < tol_m

@@ -36,11 +36,12 @@ def test_importing_every_module_loads_no_jax_or_okvis_tpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=120, check=True).stdout.splitlines()
-    assert int(out[0]) >= 38  # every module of both slices was imported
+    assert int(out[0]) >= 44  # every module of the three slices was imported
     loaded = out[1].split()
     for name in ("frontend.frontend", "imu.preintegration", "imu.ode", "factors.imu_factor",
                  "factors.reprojection", "factors.priors", "kinematics.local_parameterization",
                  "solver.structure", "solver.assemble", "solver.optimize", "estimator.marginalization",
+                 "estimator.estimator", "utils.ids", "utils.timing", "utils.syncstats", "utils.capture",
                  "linalg", "convert"):
         assert f"okvis_tpu_torch.{name}" in loaded, name
     bad = [m for m in loaded if _is_forbidden(m)]
@@ -67,17 +68,19 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def _rig_from_numpy():
+def _rig_from_numpy(device=None):
     from okvis_tpu_torch.convert import rig_from_numpy
 
     return rig_from_numpy([(752, 480, "radtan")], np.zeros((1, 3)), np.asarray([[0, 0, 0, 1.0]]),
-                          [np.asarray([461.4, 460.2, 363.0, 248.1, -0.28, 0.07, 2e-4, 1.8e-5])])
+                          [np.asarray([461.4, 460.2, 363.0, 248.1, -0.28, 0.07, 2e-4, 1.8e-5])], device=device)
 
 
 def _entry_points():
     from okvis_tpu_torch import kinematics, resolve_device
     from okvis_tpu_torch.cameras import pinhole
-    from okvis_tpu_torch.convert import imu_params_from_numpy, problem_from_numpy, problem_to_numpy
+    from okvis_tpu_torch.convert import (
+        estimator_from_numpy, estimator_to_numpy, imu_params_from_numpy, problem_from_numpy, problem_to_numpy)
+    from okvis_tpu_torch.estimator import Estimator
     from okvis_tpu_torch.datasets.synthetic import build_ba_problem, euroc_stereo_rig
     from okvis_tpu_torch.imu import ImuParams
     from okvis_tpu_torch.solver import WindowConfig, empty_problem
@@ -95,6 +98,11 @@ def _entry_points():
         "empty_problem": lambda: empty_problem(tiny),
         "problem_from_numpy": lambda: problem_from_numpy(problem_to_numpy(empty_problem(tiny, device="cpu"))),
         "build_ba_problem": lambda: build_ba_problem(num_frames=2, frame_stride=4, n_landmarks=8, duration=0.1),
+        "estimator": lambda: Estimator(_rig_from_numpy("cpu"), ImuParams.euroc(device="cpu")),
+        "estimator_from_numpy": lambda: estimator_from_numpy(
+            estimator_to_numpy(Estimator(_rig_from_numpy("cpu"), ImuParams.euroc(device="cpu"), cfg=tiny,
+                                         device="cpu")),
+            _rig_from_numpy("cpu"), ImuParams.euroc(device="cpu"), tiny),
     }
 
 
