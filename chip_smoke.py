@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the okvis_tpu_torch vision slice and back end on one CUDA card and
-check them.
+"""Drive the okvis_tpu_torch vision slice, back end, estimator and the
+per-frame VIO loop on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -49,9 +49,24 @@ check them.
    window against the port's float64 CPU run of the same variant) and the
    two Newton-Schulz runs to bitwise equality, and prints one `estimator`
    line a variant (host ms per stage, launches, syncs, busy share, tiers).
-   Neither hand kernel launches in this phase.
+   Neither hand kernel launches in this phase;
+12. runs the vio phase: 20 rendered stereo frames of the scenario of
+   tests/test_vision_e2e.py::test_full_vision_tracking through the
+   runtime's blocking per-frame loop (detect_and_describe_multi, add_states
+   with the fetch deferred, data_association_and_initialization, optimize,
+   apply_marginalization_strategy) at 400 keypoints and the default window
+   in float32, twice: the first run timed per stage and in VIO_SPANS and
+   profiled over 5 frames, the second with every association round under
+   set_sync_debug_mode("error"); holds the run to VIO_GATES (frames
+   tracked, ATE against the truth and against the JAX package's float32
+   CPU run, landmarks, keyframes and the frame where tracking starts
+   against that run), both kernels on the path (Harris
+   once a frame, Hamming at the (P·C, 400, 400) association shape), the
+   Hamming kernel to its plain version at that shape, and the rerun to
+   bitwise equality; prints the `vio` line.
 
-Prints the `kernels` JSON line, and as its last line
+Prints the `kernels` JSON line (each kernel's `launches` from the vio loop,
+the other paths' in `launches_by_path`), and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
 ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 """
@@ -135,6 +150,35 @@ ESTIMATOR_GATES = dict(
     optimize_cholesky=dict(last10=(0.1, 2e-2), f64=(0.03, 1e-2)),
 )
 ESTIMATOR_PROFILE_FRAMES = (20, 25)  # frame ids [a, b) under torch.profiler
+
+# The vio phase: tests/test_vision_e2e.py::test_full_vision_tracking's world
+# (trajectory seed 31, motion scale 0.25, 260 landmarks at 4-8 m, seed 32),
+# 20 rendered stereo frames 0.1 s apart from t = 0, the EuRoC rig with
+# overlaps, 400 keypoints a camera at threshold 40, the Estimator's default
+# window in float32, LM + Newton-Schulz.
+VIO_FRAMES = 20
+VIO_KEYPOINTS = 400
+VIO_PROFILE_FRAMES = (10, 15)  # frame indices [a, b) under torch.profiler
+# Calls timed inside a frame's stages (vio_instruments): the Estimator's
+# preintegration of its IMU links (optimize and marginalization), and the
+# matching stage's association round, fetch and recovery round
+VIO_SPANS = ("preintegrate", "association_round", "association_fetch", "recovery_round")
+# The JAX package on the same frames on the CPU (scripts/jax_vio_loop.py; a
+# CPU run, not a device metric)
+JAX_VIO = dict(
+    float32=dict(ate_m=0.02046147277096787, frames_tracked=20, landmarks=129, keyframes=6, initialized_at_frame=2),
+    float64=dict(ate_m=0.017614342691576457, frames_tracked=20, landmarks=201, keyframes=6, initialized_at_frame=2),
+)
+# Gates: at least 17 of 20 frames tracked, the JAX test's ATE bound
+# (tests/test_vision_e2e.py:71) and more than 30 landmarks at the end
+# (:73); held to the JAX float32 CPU run besides: an ATE no more than
+# ate_margin_m above it, landmarks within landmarks_rel of its count, its
+# keyframe count and the frame where tracking starts. The margins were set
+# from three readings of 0.0205-0.0216 m ATE and 129-131 landmarks, all with
+# 6 keyframes and tracking from frame 2: the JAX run above, the port's
+# float32 run on the card and the port's float32 run on the CPU
+# (run_vio(vio_scene(), dev="cpu")).
+VIO_GATES = dict(frames_tracked=17, ate_m=0.15, ate_margin_m=0.003, landmarks=30, landmarks_rel=0.1)
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # Operations a second by class, without FMA. The data sheet's 67 TFLOP/s in
@@ -959,7 +1003,7 @@ def estimator_line(variant: str, rows, summary) -> dict:
     return line
 
 
-def check_estimator() -> None:
+def check_estimator() -> dict:
     """The estimator phase (ESTIMATOR_SCENARIO): each variant on the card in
     float32 and on the CPU in float64; gates of ESTIMATOR_GATES; the two
     card runs of LM + Newton-Schulz bitwise equal; at least one frame at the
@@ -1014,6 +1058,355 @@ def check_estimator() -> None:
             raise SmokeError(f"two card runs of {variant} differ: {line['bitwise_equal_rerun']}")
     launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
     print("estimator_kernel_launches", json.dumps(launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the vio phase: detect -> add_states -> associate -> optimize -> marginalize
+# ---------------------------------------------------------------------------
+
+
+def vio_scene():
+    """The vio phase's world (datasets.synthetic.vio_scenario: the scenario
+    of tests/test_vision_e2e.py::test_full_vision_tracking), rendered on the
+    CPU."""
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, vio_scenario
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    return vio_scenario(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr), VIO_FRAMES)
+
+
+@contextlib.contextmanager
+def vio_instruments(est, sync, sync_check: bool):
+    """Wrap the association programs and the estimator's preintegration and
+    fetch for the length of a run: the shape of every Hamming call they make
+    (the recovery round's tagged), the arguments of the last (P·C, K, K)
+    call and of the last call of each program, and, with `sync_check`, every
+    associate_multicam call inside set_sync_debug_mode("error"). Unless
+    `sync_check`, each of them also adds its host ms, waited for on the card
+    (`sync` before and after), to `log.ms` under VIO_SPANS' name."""
+    import torch
+
+    from okvis_tpu_torch.frontend import kernels
+
+    log = SimpleNamespace(shapes=[], assoc_args=None, rounds=0, in_recovery=False, calls={},
+                          ms=dict.fromkeys(VIO_SPANS, 0.0))
+
+    def timed(name, fn):
+        if sync_check:
+            return fn
+
+        def wrapper(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                sync()
+                log.ms[name] += 1e3 * (time.perf_counter() - t0)
+        return wrapper
+    orig_mdm, orig_assoc, orig_rec, orig_2d2d = (kernels.masked_distance_matrix, kernels.associate_multicam,
+                                                 kernels.gated_match_pairs, kernels.ransac_2d2d_px)
+
+    def mdm(*args):
+        out = orig_mdm(*args)
+        log.shapes.append(("recovery" if log.in_recovery else "association" if out.dim() == 3 else "stereo",
+                           tuple(out.shape)))
+        if out.dim() == 3 and not log.in_recovery:
+            log.assoc_args = args
+        return out
+
+    def assoc(*args, **kw):
+        log.rounds += 1
+        log.calls["associate_multicam"] = (orig_assoc, args, kw)
+        if not sync_check:
+            return orig_assoc(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig_assoc(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def bootstrap(*args, **kw):
+        log.calls["ransac_2d2d_px"] = (orig_2d2d, args, kw)
+        return orig_2d2d(*args, **kw)
+
+    def recovery(*args, **kw):
+        log.calls["gated_match_pairs"] = (orig_rec, args, kw)
+        log.in_recovery = True
+        try:
+            return orig_rec(*args, **kw)
+        finally:
+            log.in_recovery = False
+
+    names = ("masked_distance_matrix", "associate_multicam", "gated_match_pairs", "ransac_2d2d_px")
+    wrapped = (mdm, timed("association_round", assoc), timed("recovery_round", recovery), bootstrap)
+    for name, fn in zip(names, wrapped):
+        setattr(kernels, name, fn)
+    est._preintegrate_links = timed("preintegrate", est._preintegrate_links)
+    est.fetch_with_pending = timed("association_fetch", est.fetch_with_pending)
+    try:
+        yield log
+    finally:
+        for name, fn in zip(names, (orig_mdm, orig_assoc, orig_rec, orig_2d2d)):
+            setattr(kernels, name, fn)
+        del est._preintegrate_links, est.fetch_with_pending
+
+
+def run_vio(scene, dev: str = "cuda", profile: bool = False, sync_check: bool = False):
+    """The runtime's blocking per-frame path (pipeline/threaded_vio.py's
+    frame consumer and processing loop, without threads or queues) on the
+    card in float32: the predicted pose (before the first state, the IMU's
+    gravity), detect_and_describe_multi, add_states with the fetch
+    deferred, the multiframe, last_prop_device,
+    data_association_and_initialization, set_keyframe, optimize,
+    apply_marginalization_strategy. Each stage ends in a device sync for its
+    host time; the spans of vio_instruments are timed inside the stages.
+    With `profile`, the frames of VIO_PROFILE_FRAMES run under
+    torch.profiler and are left out of the time statistics. Returns
+    (estimator, frontend, per-frame rows, trajectory, profile summary,
+    instrument log)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import IMU_LEAD, euroc_stereo_rig, vio_imu_slice
+    from okvis_tpu_torch.estimator import Estimator
+    from okvis_tpu_torch.frontend.frame import MultiFrame
+    from okvis_tpu_torch.frontend.frontend import Frontend, FrontendConfig
+    from okvis_tpu_torch.imu import ImuParams
+    from okvis_tpu_torch.imu.preintegration import init_pose_from_imu
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+    from okvis_tpu_torch.utils import syncstats
+    from okvis_tpu_torch.utils.ids import IdProvider
+
+    dtype = torch.float32
+    specs, T_SC, intr = euroc_stereo_rig(device=dev)
+    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+    rig.compute_overlaps()
+    IdProvider.reset()
+    est = Estimator(rig, ImuParams.euroc(dtype, dev), 5, 3, device=dev, dtype=dtype)
+    fe = Frontend(rig, FrontendConfig(detection_threshold=40.0, max_keypoints=VIO_KEYPOINTS))
+    traj = scene.traj
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    rows, trajectory, summary, prof = [], [], None, None
+    a, b = VIO_PROFILE_FRAMES
+    with vio_instruments(est, sync, sync_check) as log:
+        for fi, (t, images) in enumerate(zip(scene.times, scene.images)):
+            if profile and fi == a:
+                sync()
+                prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            syncstats.reset()
+            n_shapes, harris0, ham0 = len(log.shapes), harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
+            spans0 = dict(log.ms)
+            sync()
+            t0 = time.perf_counter()
+            if trajectory:
+                T_pred = trajectory[-1][2]
+            else:
+                ts, _gy, acc = vio_imu_slice(traj, t - 1.0, t, t + IMU_LEAD)
+                T_pred = init_pose_from_imu(torch.tensor(acc.mean(axis=0), dtype=dtype, device=dev))
+            frames = fe.detect_and_describe_multi(images, T_pred)
+            sync()
+            t1 = time.perf_counter()
+            mf = MultiFrame(id=IdProvider.new_id(), timestamp=t, frames=frames)
+            last_t = est._last_state().timestamp if est.states else t
+            ts, gy, acc = vio_imu_slice(traj, min(last_t, t), t, t + IMU_LEAD)
+            if len(ts) < 2:
+                continue
+            sid = est.add_states(t, ts, gy, acc, as_keyframe=False, frame_id=mf.id, defer_fetch=True)
+            est.multiframes[mf.id] = mf
+            sync()
+            t2 = time.perf_counter()
+            T_prop, sb_prop = est.last_prop_device()
+            as_kf = fe.data_association_and_initialization(est, T_prop, mf, sb_prop=sb_prop)
+            est.set_keyframe(sid, as_kf)
+            sync()
+            t3 = time.perf_counter()
+            est.optimize()
+            sync()
+            t4 = time.perf_counter()
+            est.apply_marginalization_strategy()
+            sync()
+            t5 = time.perf_counter()
+            T = est.get_T_WS(sid)
+            trajectory.append((t, sid, T))
+            shapes = [sh for kind, sh in log.shapes[n_shapes:] if kind == "association"]
+            i = int(round(t * 200))
+            rows.append(dict(
+                frame=fi, detect_ms=1e3 * (t1 - t0), add_ms=1e3 * (t2 - t1), matching_ms=1e3 * (t3 - t2),
+                optimize_ms=1e3 * (t4 - t3), marginalize_ms=1e3 * (t5 - t4), frame_ms=1e3 * (t5 - t0),
+                syncs=syncstats.snapshot(), profiled=prof is not None, keyframe=bool(as_kf),
+                spans_ms={k: log.ms[k] - spans0[k] for k in VIO_SPANS}, initialized=fe.is_initialized, harris=harris_suppressed_cuda.launches - harris0,
+                hamming=hamming_matrix_cuda.launches - ham0, hamming_association=len(shapes),
+                association_shapes=sorted(set(shapes)),
+                keypoints=[f.num_keypoints for f in frames],
+                bound=[int((f.landmark_ids != 0).sum()) for f in mf.frames],
+                landmarks=est.num_landmarks(), position=float(np.linalg.norm(T.r.numpy() - traj.r[i])),
+                lids=[f.landmark_ids.copy() for f in mf.frames]))
+            if prof is not None and fi == b - 1:
+                wall_ms = 1e3 * (time.perf_counter() - t_prof)
+                prof.__exit__(None, None, None)
+                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
+                summary = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
+                               device_busy_share=kernel_ms / wall_ms,
+                               launches_per_frame=sum(e.count for e in kern) / (b - a))
+                prof = None
+    return est, fe, rows, trajectory, summary, log
+
+
+def vio_result(est, rows, trajectory, traj) -> dict:
+    """ATE (Umeyama-aligned, eval/ate.py) and the run's counts; the
+    trajectory, landmark table and keypoint-to-landmark ids as arrays for
+    the rerun comparison."""
+    from okvis_tpu_torch.eval.ate import ate_rmse
+
+    est_ts = np.asarray([int(round(t * 1e9)) for t, _, _ in trajectory], np.int64)
+    est_p = np.stack([T.r.numpy() for _, _, T in trajectory])
+    lm = sorted(est.landmarks.values(), key=lambda r: r.id)
+    init = [r["frame"] for r in rows if r["initialized"]]
+    return dict(
+        ate_m=ate_rmse(est_ts, est_p, (traj.ts * 1e9).astype(np.int64), traj.r), frames_tracked=len(trajectory),
+        landmarks=est.num_landmarks(), keyframes=sum(r["keyframe"] for r in rows),
+        initialized_at_frame=init[0] if init else None,
+        arrays=dict(
+            trajectory=np.stack([np.concatenate([T.r.numpy(), T.q.numpy()]) for _, _, T in trajectory]),
+            landmark_ids=np.asarray([r.id for r in lm]), landmark_slots=np.asarray([r.slot for r in lm]),
+            hp_W=est.hp_W.copy(), keypoint_landmarks=np.stack([np.stack(r["lids"]) for r in rows])))
+
+
+def vio_line(rows, summary, result, log, rounds_checked) -> dict:
+    """The `vio` JSON line: host ms per stage (median, max) after two
+    warm-up frames and outside the profiled frames, syncs a frame by
+    counter, launches and busy share of the profiled frames, the Hamming
+    launches a frame at the association shape, the gates' quantities."""
+    timed = [r for r in rows[2:] if not r["profiled"]]
+    line = dict(frames=len(rows), timed_frames=len(timed), keypoints=VIO_KEYPOINTS, dtype="float32",
+                window=dict(S=9, L=512, O=2048), solver="LM + Newton-Schulz")
+    for key in ("detect_ms", "add_ms", "matching_ms", "optimize_ms", "marginalize_ms", "frame_ms"):
+        vals = [r[key] for r in timed]
+        line[key] = dict(median=statistics.median(vals), max=max(vals))
+    # each span's host ms a frame and its share of the timed frames' time
+    # (the spans wait for the card before and after, so a share counts
+    # the host and device time the frame spends inside the call)
+    total = sum(r["frame_ms"] for r in timed)
+    line["spans"] = {k: dict(median_ms=statistics.median(r["spans_ms"][k] for r in timed),
+                             share=sum(r["spans_ms"][k] for r in timed) / total) for k in VIO_SPANS}
+    counters = sorted({k for r in rows[2:] for k in r["syncs"]})
+    line["syncs_per_frame"] = {k: sum(r["syncs"].get(k, 0) for r in rows[2:]) / len(rows[2:]) for k in counters}
+    line["profile"] = summary
+    assoc = [r for r in rows if r["frame"] > 0]
+    line["hamming_association_per_frame"] = sum(r["hamming_association"] for r in assoc) / len(assoc)
+    line["hamming_per_frame"] = sum(r["hamming"] for r in rows) / len(rows)
+    line["harris_per_frame"] = sorted({r["harris"] for r in rows})
+    line["association_shapes"] = sorted({tuple(s) for r in rows for s in r["association_shapes"]})
+    line["recovery_rounds"] = sum(kind == "recovery" for kind, _ in log.shapes)
+    line["association_rounds_sync_free"] = rounds_checked
+    line["position_error_m"] = [r["position"] for r in rows]
+    line["bound_keypoints"] = [r["bound"] for r in rows]
+    line.update({k: v for k, v in result.items() if k != "arrays"})
+    line["jax_cpu_reference"] = JAX_VIO
+    return line
+
+
+def check_vio() -> dict:
+    """The vio phase: VIO_FRAMES rendered stereo frames through the per-frame
+    loop on the card, twice (the second run with every association round
+    under set_sync_debug_mode("error")); the gates of VIO_GATES; both hand
+    kernels on the path; the Hamming kernel held to its plain version at
+    the association shape the run gave it. Returns the Hamming kernel's
+    association fields for the `kernels` line."""
+    import torch
+
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming import masked_distance_matrix_plain, unpack_to_pm1
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    scene = vio_scene()
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    est, fe, rows, trajectory, summary, log = run_vio(scene, profile=True)
+    launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+    result = vio_result(est, rows, trajectory, scene.traj)
+    est2, _fe2, rows2, trajectory2, _s, log2 = run_vio(scene, sync_check=True)
+    result2 = vio_result(est2, rows2, trajectory2, scene.traj)
+    same = {k: bool(np.array_equal(result["arrays"][k], result2["arrays"][k])) for k in result["arrays"]}
+    line = vio_line(rows, summary, result, log, log2.rounds)
+    line["bitwise_equal_rerun"] = same
+    line["launches"] = launches
+    print("vio_frames", json.dumps([{k: r[k] for k in ("frame", "keypoints", "bound", "landmarks", "keyframe",
+                                                       "initialized", "harris", "hamming", "hamming_association",
+                                                       "position", "frame_ms")} for r in rows]))
+
+    # the Hamming kernel at the association shape this run gave it
+    args = log.assoc_args
+    dk = hamming_matrix_cuda(*args)
+    dp = masked_distance_matrix_plain(*args)
+    torch.cuda.synchronize()
+    err = int((dk - dp).abs().max())
+    g, na, nb = dk.shape
+    n_bytes = sum(x.numel() * x.element_size() for x in args if x is not None) + g * na * nb * 4
+    bound_ms, bound_by = bound(n_bytes, *({c: n * g * na * nb for c, n in r.items()} for r in HAMMING_ROUTES))
+    va, vb = (unpack_to_pm1(x.reshape(-1, 16)).reshape(g, -1, 512) for x in args[:2])
+    assoc = dict(shape=[g, na, nb], ms=device_ms(lambda: hamming_matrix_cuda(*args)),
+                 plain_ms=device_ms(lambda: masked_distance_matrix_plain(*args)),
+                 library_ms=device_ms(lambda: torch.bmm(va, vb.transpose(1, 2))), bound_ms=bound_ms,
+                 bound_by=bound_by, max_abs_err=err, launches_per_frame=line["hamming_association_per_frame"])
+    line["hamming_association_kernel"] = assoc
+    # host syncs of one call of each program, on the inputs of its last call
+    # in the run (the 2D-2D RANSAC's SVD and eigh read LAPACK's info)
+    line["syncs_per_call"] = {name: count_syncs(lambda: fn(*a, **kw)) for name, (fn, a, kw) in log.calls.items()}
+    # one association round alone: its kernel time and launches, and its
+    # host time with the card waited for
+    fn, a, kw = log.calls["associate_multicam"]
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*a, **kw)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    line["associate_multicam_call"] = dict(host_ms=statistics.median(host), **profile_call(lambda: fn(*a, **kw)))
+    print("vio", json.dumps(line))
+
+    gates = VIO_GATES
+    ref = JAX_VIO["float32"]
+    fails = []
+    if result["frames_tracked"] < gates["frames_tracked"]:
+        fails.append(f"{result['frames_tracked']} frames tracked")
+    if not (result["ate_m"] is not None and result["ate_m"] < gates["ate_m"]
+            and result["ate_m"] <= ref["ate_m"] + gates["ate_margin_m"]):
+        fails.append(f"ATE {result['ate_m']}")
+    if (result["landmarks"] <= gates["landmarks"]
+            or abs(result["landmarks"] - ref["landmarks"]) > gates["landmarks_rel"] * ref["landmarks"]):
+        fails.append(f"{result['landmarks']} landmarks")
+    if result["keyframes"] != ref["keyframes"]:
+        fails.append(f"{result['keyframes']} keyframes")
+    if result["initialized_at_frame"] != ref["initialized_at_frame"]:
+        fails.append(f"tracking initialized at frame {result['initialized_at_frame']}")
+    if line["harris_per_frame"] != [1]:
+        fails.append(f"Harris launches a frame {line['harris_per_frame']}")
+    if min(r["hamming_association"] for r in rows if r["frame"] > 0) < 1:
+        fails.append("a frame after the first made no association-shape Hamming launch")
+    if line["syncs_per_call"].get("associate_multicam", 1) or line["syncs_per_call"].get("gated_match_pairs"):
+        fails.append(f"the association syncs: {line['syncs_per_call']}")
+    if log2.rounds < len(rows) - 1:
+        fails.append(f"only {log2.rounds} association rounds ran sync-checked")
+    if not all(same.values()):
+        fails.append(f"the rerun differs: {same}")
+    if err or not torch.equal(dk, dp):
+        fails.append(f"Hamming kernel differs from its plain version at {tuple(dk.shape)}")
+    if min(launches.values()) == 0:
+        fails.append(f"a kernel of the path was never launched: {launches}")
+    if fails:
+        raise SmokeError("vio phase: " + "; ".join(fails))
+    return dict(launches=launches, association=assoc)
 
 
 def kernel_resources(build_log: str, lib) -> dict:
@@ -1099,8 +1492,17 @@ def main() -> int:
     time_backend(stages, eqs, cfg)
     print(f"backend_seconds {time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
-    check_estimator()
+    est_launches = check_estimator()
     print(f"estimator_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    vio = check_vio()
+    print(f"vio_seconds {time.perf_counter() - t0:.2f}")
+    # `launches` is the vio loop's (this slice's main path); the vision
+    # slice's count stays beside it
+    for k, name in zip(kernels, ("harris_nms", "hamming")):
+        k["launches_by_path"] = dict(vision=k["launches"], estimator=est_launches[name], vio=vio["launches"][name])
+        k["launches"] = vio["launches"][name]
+    kernels[1]["association"] = vio["association"]
     print(f"smoke_seconds {time.perf_counter() - t_start:.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,9 @@
 The camera is a hashable static spec (distortion type + image size) plus an
 intrinsics tensor [fu, fv, cu, cv, d0..dK-1]. Every function takes a batch
 of points (..., 3) / (..., 4) / (..., 2) where the JAX package took one
-point under vmap. The Jacobians (``jax.jacfwd`` in the JAX package) are
+point under vmap; the intrinsics may carry leading dims that broadcast
+against the points' batch without the last point dim (e.g. (G, 1, N)
+against (G, K, 3)), so one call projects several cameras. The Jacobians (``jax.jacfwd`` in the JAX package) are
 analytic: the chain rule through the distortion model's Jacobians.
 
 Projection status is (uv, flags) with flags an int32: 0=successful,
@@ -48,8 +50,8 @@ def project(spec: CameraSpec, intrinsics: torch.Tensor, p_C: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project Euclidean camera-frame points -> pixel (uv, status_flags):
     divide by z, distort, scale+offset."""
-    fu, fv, cu, cv = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
-    dparams = intrinsics[4:]
+    fu, fv, cu, cv = intrinsics[..., 0], intrinsics[..., 1], intrinsics[..., 2], intrinsics[..., 3]
+    dparams = intrinsics[..., 4:]
     z = p_C[..., 2]
     singular = z.abs() < 1e-12
     rz = 1.0 / torch.where(singular, torch.ones_like(z), z)
@@ -83,14 +85,14 @@ def project_jacobian_point(spec: CameraSpec, intrinsics: torch.Tensor, p_C: torc
     singular = z.abs() < 1e-12
     rz = 1.0 / torch.where(singular, torch.ones_like(z), z)
     xy = p_C[..., :2] * rz[..., None]
-    Jd = dist.distort_jacobian(spec.dist_type, intrinsics[4:], xy)  # (..., 2, 2)
+    Jd = dist.distort_jacobian(spec.dist_type, intrinsics[..., 4:], xy)  # (..., 2, 2)
     dz = torch.where(singular[..., None], torch.zeros_like(xy), -xy * rz[..., None])
     zero = torch.zeros_like(z)
     Jxy = torch.stack([
         torch.stack([rz, zero, dz[..., 0]], -1),
         torch.stack([zero, rz, dz[..., 1]], -1),
     ], -2)  # (..., 2, 3)
-    f = torch.stack([intrinsics[0], intrinsics[1]])[:, None]
+    f = torch.stack([intrinsics[..., 0], intrinsics[..., 1]], dim=-1)[..., None]
     return f * (Jd @ Jxy)
 
 
@@ -125,8 +127,8 @@ def project_jacobian_intrinsics(spec: CameraSpec, intrinsics: torch.Tensor, p_C:
 
 def back_project(spec: CameraSpec, intrinsics: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Pixels -> unit-z ray directions (x, y, 1) via iterative undistort."""
-    fu, fv, cu, cv = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
-    dparams = intrinsics[4:]
+    fu, fv, cu, cv = intrinsics[..., 0], intrinsics[..., 1], intrinsics[..., 2], intrinsics[..., 3]
+    dparams = intrinsics[..., 4:]
     xy_d = torch.stack([(uv[..., 0] - cu) / fu, (uv[..., 1] - cv) / fv], dim=-1)
     xy = dist.undistort(spec.dist_type, dparams, xy_d)
     return torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)

@@ -2,8 +2,8 @@
 
 The port never imports okvis_tpu; a caller holding okvis_tpu objects passes
 their numpy arrays and Python values here (the parity tests do so to give
-both packages the same rig, configuration, IMU parameters, window and
-estimator state).
+both packages the same rig, configuration, IMU parameters, window,
+estimator state and frames).
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from .cameras.ncamera import NCameraSystem
 from .cameras.pinhole import CameraSpec
 from .device import resolve_device
 from .estimator.estimator import Estimator, ImuLinkRecord, LandmarkRecord, Observation, StateRecord, _host
+from .frontend.detection import Keypoints
+from .frontend.frame import FrameData, MultiFrame
 from .frontend.frontend import FrontendConfig
 from .imu.preintegration import ImuParams, PreintegratedImu
 from .kinematics import SE3
@@ -71,6 +73,48 @@ def frontend_config_from_dict(values: dict) -> FrontendConfig:
     package's FrontendConfig); an unknown key raises."""
     _check_fields(FrontendConfig, values, "frontend_config_from_dict")
     return FrontendConfig(**values)
+
+
+def frame_from_numpy(uv: np.ndarray, score: np.ndarray, mask: np.ndarray, descriptors: np.ndarray,
+                     landmark_ids: np.ndarray, sizes=None, device=None,
+                     dtype: torch.dtype = torch.float32) -> FrameData:
+    """The port's FrameData from numpy arrays: (K, 2) uv and (K,) score in
+    `dtype`, (K,) bool mask, (K, 16) descriptors as uint32 (the JAX
+    package's) or int32 bit patterns (the port's), (K,) landmark ids (a
+    copy is kept) and optional (K,) sizes. Host mirrors of uv and mask are
+    set from the same arrays."""
+    device = resolve_device(device)
+    desc = np.ascontiguousarray(np.asarray(descriptors)).astype(np.uint32).view(np.int32)
+    kps = Keypoints(uv=torch.from_numpy(np.array(uv)).to(device=device, dtype=dtype),
+                    score=torch.from_numpy(np.array(score)).to(device=device, dtype=dtype),
+                    mask=torch.from_numpy(np.array(mask, bool)).to(device))
+    fd = FrameData(keypoints=kps, descriptors=torch.from_numpy(desc.copy()).to(device),
+                   landmark_ids=np.array(landmark_ids, np.int64),
+                   sizes=None if sizes is None else np.array(sizes))
+    fd.set_host_mirrors(kps.uv.cpu().numpy(), np.array(mask, bool))
+    return fd
+
+
+def frame_to_numpy(fd) -> dict:
+    """A FrameData of either package as frame_from_numpy's keyword
+    arguments; descriptors as uint32."""
+    desc = np.asarray(fd.descriptors.cpu() if isinstance(fd.descriptors, torch.Tensor) else fd.descriptors)
+    host = lambda x: np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)  # noqa: E731
+    return dict(uv=host(fd.keypoints.uv), score=host(fd.keypoints.score), mask=host(fd.keypoints.mask).astype(bool),
+                descriptors=desc.view(np.uint32) if desc.dtype == np.int32 else desc.astype(np.uint32),
+                landmark_ids=np.array(fd.landmark_ids, np.int64),
+                sizes=None if fd.sizes is None else np.array(fd.sizes))
+
+
+def multiframe_from_numpy(values: dict, device=None, dtype: torch.dtype = torch.float32) -> MultiFrame:
+    """The port's MultiFrame from multiframe_to_numpy's output."""
+    return MultiFrame(id=int(values["id"]), timestamp=float(values["timestamp"]),
+                      frames=[frame_from_numpy(**f, device=device, dtype=dtype) for f in values["frames"]])
+
+
+def multiframe_to_numpy(mf) -> dict:
+    """A MultiFrame of either package as plain values and numpy arrays."""
+    return dict(id=int(mf.id), timestamp=float(mf.timestamp), frames=[frame_to_numpy(f) for f in mf.frames])
 
 
 def _fields_of(values) -> dict:

@@ -432,3 +432,166 @@ def feed_estimator_frame(est, frame: EstimatorFrame, init: dict) -> int:
         for _lm, c, uv, li in group:
             est.add_observation(lm_id, sid, c, uv, keypoint_idx=li, size=8.0)
     return sid
+
+
+# ---------------------------------------------------------------------------
+# the per-frame VIO loop's inputs: IMU slices as a runtime cuts them, and
+# keypoint frames of projected landmarks
+# ---------------------------------------------------------------------------
+
+IMU_OVERLAP = 0.02  # s of IMU slice overlap on either side (ThreadedKFVio.cpp:52-53)
+IMU_LEAD = 0.025  # s of IMU fed past a frame before it is processed
+
+
+def vio_imu_slice(traj: SyntheticImu, t0: float, t1: float, t_fed: float):
+    """(ts, gyro, acc) covering [t0 - 0.02 s, t1 + 0.02 s] from the samples
+    fed so far (ts <= t_fed), with one sample before the start, as the
+    runtime's IMU buffer slices them (ThreadedKFVio::getImuMeasurments)."""
+    ns = lambda t: int(round(t * 1e9))  # noqa: E731  the runtime's integer clock
+    ts_ns = np.asarray([ns(t) for t in traj.ts], np.int64)
+    fed = ts_ns <= ns(t_fed)
+    ts_ns = ts_ns[fed]
+    i0 = max(0, int(np.searchsorted(ts_ns, ns(t0) - ns(IMU_OVERLAP), side="left")) - 1)
+    i1 = int(np.searchsorted(ts_ns, ns(t1) + ns(IMU_OVERLAP), side="right"))
+    return ts_ns[i0:i1] / 1e9, traj.gyro[:len(ts_ns)][i0:i1], traj.acc[:len(ts_ns)][i0:i1]
+
+
+@dataclasses.dataclass
+class KeypointFrame:
+    """One multiframe of projected landmarks (numpy only): per camera, K
+    keypoint slots with uv, a validity mask, uint32 descriptors and the
+    index of the landmark each slot shows (-1: empty)."""
+
+    t: float
+    uv: np.ndarray  # (C, K, 2)
+    mask: np.ndarray  # (C, K) bool
+    descriptors: np.ndarray  # (C, K, 16) uint32
+    landmark: np.ndarray  # (C, K) int
+    r_WS: np.ndarray  # ground truth
+    q_WS: np.ndarray
+
+
+def keypoint_frames(traj: SyntheticImu, landmarks: np.ndarray, rig, n_frames: int, K: int, seed: int,
+                    frame_dt: float = 0.1, pixel_noise: float = 0.3, bit_flips: int = 6, border: float = 20.0):
+    """Frames of a detector that finds every landmark in view: each landmark
+    has its own random 512-bit descriptor, every view of it flips
+    `bit_flips` random bits, and its keypoint is the projection at the true
+    pose (float64 on the CPU) plus Gaussian pixel noise. Per camera the
+    first K landmarks in view (at least `border` px inside the image) fill
+    the slots in a random order; the rest of the slots are empty."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2**32, (len(landmarks), 16), dtype=np.uint32)
+    pts = torch.from_numpy(np.asarray(landmarks, np.float64))
+    C = rig.num_cameras
+    frames = []
+    for fi in range(n_frames):
+        t = fi * frame_dt
+        i = int(round(t * 200))
+        T_WS = kin.SE3(r=torch.from_numpy(traj.r[i]), q=torch.from_numpy(traj.q[i]))
+        uv = np.zeros((C, K, 2))
+        mask = np.zeros((C, K), bool)
+        desc = np.zeros((C, K, 16), np.uint32)
+        lm = np.full((C, K), -1)
+        for c in range(C):
+            T_SC = kin.SE3(r=rig.T_SC.r[c].detach().cpu().double(), q=rig.T_SC.q[c].detach().cpu().double())
+            T_CW = kin.inverse(kin.compose(T_WS, T_SC))
+            spec = rig.specs[c]
+            proj, flags = pinhole.project(spec, rig.intrinsics[c].detach().cpu().double(),
+                                          kin.transform_point(T_CW, pts))
+            proj = proj.numpy()
+            inside = ((flags.numpy() == pinhole.STATUS_OK) & (proj[:, 0] >= border)
+                      & (proj[:, 0] <= spec.width - 1 - border) & (proj[:, 1] >= border)
+                      & (proj[:, 1] <= spec.height - 1 - border))
+            seen = rng.permutation(np.nonzero(inside)[0])[:K]
+            n = len(seen)
+            slots = rng.permutation(K)[:n]
+            uv[c, slots] = proj[seen] + rng.normal(0.0, pixel_noise, (n, 2))
+            mask[c, slots] = True
+            lm[c, slots] = seen
+            d = base[seen].copy()
+            for j in range(n):
+                for bit in rng.choice(512, bit_flips, replace=False):
+                    d[j, bit // 32] ^= np.uint32(1 << (bit % 32))
+            desc[c, slots] = d
+        frames.append(KeypointFrame(t=t, uv=uv, mask=mask, descriptors=desc, landmark=lm,
+                                    r_WS=traj.r[i].copy(), q_WS=traj.q[i].copy()))
+    return frames
+
+
+def association_scene(rig, P: int = 2, K: int = 48, seed: int = 3, pose_noise: float = 0.02) -> dict:
+    """The numpy inputs of one association round (frontend.kernels.
+    associate_multicam, in its argument names) on keypoint_frames of the
+    smoke scene (trajectory seed 31, 600 landmarks at 4-8 m): sources are
+    frames P-1, ..., 0 (newest first), the current frame is frame P. A
+    source keypoint of an even landmark carries it (3D-2D), the others are
+    free for 2D-2D; the current pose is the truth moved by `pose_noise` m;
+    the current keypoints of every fourth landmark already carry it (RANSAC
+    candidates). Poses as (r, q) pairs; descriptors uint32."""
+    traj = simulate_trajectory(duration=1.2, seed=31, motion_scale=0.25)
+    lms = make_landmarks(traj, 600, seed=32, radius=(4.0, 8.0))
+    frames = keypoint_frames(traj, lms, rig, P + 1, K, seed=seed)
+    r_SC, q_SC = rig.T_SC.r.detach().cpu().double(), rig.T_SC.q.detach().cpu().double()
+    C = rig.num_cameras
+    src, cur = frames[:P][::-1], frames[P]
+
+    def T_WC(f, c):
+        T = kin.compose(kin.SE3(r=torch.from_numpy(f.r_WS), q=torch.from_numpy(f.q_WS)),
+                        kin.SE3(r=r_SC[c], q=q_SC[c]))
+        return T.r.numpy(), T.q.numpy()
+
+    lm_a = np.stack([f.landmark for f in src])  # (P, C, K)
+    sel3d = (lm_a >= 0) & (lm_a % 2 == 0)
+    sel_prev = (cur.landmark >= 0) & (cur.landmark % 4 == 1)
+    poses = [[T_WC(f, c) for c in range(C)] for f in src]
+    return dict(
+        spec=(rig.specs[0].width, rig.specs[0].height, rig.specs[0].dist_type),
+        intr=np.stack([i.detach().cpu().double().numpy() for i in rig.intrinsics]),
+        desc_a=np.stack([f.descriptors for f in src]), sel3d=sel3d,
+        hp=np.where(sel3d[..., None], np.concatenate([landmarks_of(lms, lm_a), np.ones((P, C, K, 1))], -1),
+                    np.asarray([0.0, 0, 0, 1])),
+        free2=(lm_a >= 0) & ~sel3d, uv_a=np.stack([f.uv for f in src]), std_a=np.full((P, C, K), 0.8 * 8.0 / 12.0),
+        T_WS_b=(cur.r_WS + pose_noise, cur.q_WS),
+        sb_b=np.concatenate([traj.v[int(round(cur.t * 200))], np.zeros(6)]),
+        T_WC_a=(np.asarray([[t[0] for t in row] for row in poses]), np.asarray([[t[1] for t in row] for row in poses])),
+        desc_b=cur.descriptors, free_b=cur.mask & ~sel_prev, uv_b=cur.uv, std_b=np.full((C, K), 0.8 * 8.0 / 12.0),
+        sel_prev=sel_prev, pts_prev=np.where(sel_prev[..., None], landmarks_of(lms, cur.landmark), 0.0),
+        T_SC=(r_SC.numpy(), q_SC.numpy()),
+    )
+
+
+def landmarks_of(landmarks: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Landmark positions at indices `idx` (any shape), zeros where -1."""
+    return np.where((idx >= 0)[..., None], landmarks[np.maximum(idx, 0)], 0.0)
+
+
+@dataclasses.dataclass
+class VioScenario:
+    """Rendered stereo frames with the IMU stream that drives a per-frame
+    VIO loop (numpy only)."""
+
+    traj: SyntheticImu
+    landmarks: np.ndarray
+    times: list  # frame timestamps [s]
+    images: list  # per frame, per camera (H, W) float32 images
+
+
+def vio_scenario(rig, n_frames: int = 20, frame_dt: float = 0.1) -> VioScenario:
+    """tests/test_vision_e2e.py::test_full_vision_tracking's world:
+    simulate_trajectory(duration=2.0, seed=31, motion_scale=0.25), 260
+    landmarks at 4-8 m (seed 32), frames every `frame_dt` from t = 0,
+    rendered by render_world_image on the CPU in float64 at the true poses
+    of `rig`'s cameras (any device: the rig is read back to the CPU)."""
+    traj = simulate_trajectory(duration=max(2.0, n_frames * frame_dt), seed=31, motion_scale=0.25)
+    lms = make_landmarks(traj, 260, seed=32, radius=(4.0, 8.0))
+    cpu = lambda x: x.detach().cpu().double()  # noqa: E731
+    times, images = [], []
+    for fi in range(n_frames):
+        t = fi * frame_dt
+        i = int(round(t * 200))
+        T_WS = kin.SE3(r=torch.from_numpy(traj.r[i]), q=torch.from_numpy(traj.q[i]))
+        images.append([
+            render_world_image(rig.specs[c], cpu(rig.intrinsics[c]),
+                               kin.compose(T_WS, kin.SE3(r=cpu(rig.T_SC.r[c]), q=cpu(rig.T_SC.q[c]))), lms)
+            for c in range(rig.num_cameras)])
+        times.append(t)
+    return VioScenario(traj=traj, landmarks=lms, times=times, images=images)

@@ -87,7 +87,12 @@ def masked_distance_matrix(
     """Distance matrix with invalid rows/cols set to MAX_DIST: (NA, NB) from
     (NA, 16) descriptors and (NA,) masks, or (G, NA, NB) from (G, NA, 16) and
     (G, NA) (a batch of 1 broadcasts). One kernel launch for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors. The inputs must be contiguous on
+    either device, since the kernel reads its rows at fixed strides: a CPU
+    run then refuses what the card would refuse."""
+    for name, t in (("desc_a", desc_a), ("desc_b", desc_b), ("mask_a", mask_a), ("mask_b", mask_b)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"masked_distance_matrix: {name} must be contiguous")
     if desc_a.device.type == "cuda":
         from .hamming_cuda import hamming_matrix_cuda
 
@@ -115,47 +120,55 @@ def mutual_best_assignment(
     ``argmin`` does. If distance_ratio > 0, Lowe's ratio test best /
     second-best gates the proposals.
 
-    Returns (NA,) int64: matched B index per A, -1 if unmatched."""
-    NA, NB = dist.shape
+    dist is (..., NA, NB): leading dims are independent problems, solved in
+    one batch (the JAX package's ``jax.vmap`` of it). Returns (..., NA)
+    int64: matched B index per A, -1 if unmatched."""
+    *lead, NA, NB = dist.shape
     big = MAX_DIST
     dev = dist.device
+    d = dist.reshape(-1, NA, NB)
+    G = d.shape[0]
     if distance_ratio > 0:
-        top2 = torch.topk(dist, 2, dim=1, largest=False).values  # (NA, 2) two smallest
-        ratio_ok = top2[:, 0].to(torch.float32) < distance_ratio * top2[:, 1].to(torch.float32)
+        top2 = torch.topk(d, 2, dim=2, largest=False).values  # (G, NA, 2) two smallest
+        ratio_ok = top2[..., 0].to(torch.float32) < distance_ratio * top2[..., 1].to(torch.float32)
     else:
-        ratio_ok = torch.ones(NA, dtype=torch.bool, device=dev)
+        ratio_ok = torch.ones((G, NA), dtype=torch.bool, device=dev)
 
     rows = torch.arange(NA, device=dev)
-    match_a = torch.full((NA,), -1, dtype=torch.int64, device=dev)
-    taken_b = torch.zeros(NB, dtype=torch.bool, device=dev)
-    d = dist
+    # flat offsets of each problem's rows and columns for the OR-scatters
+    off_a = torch.arange(G, device=dev)[:, None] * NA
+    off_b = torch.arange(G, device=dev)[:, None] * NB
+    match_a = torch.full((G, NA), -1, dtype=torch.int64, device=dev)
+    taken_b = torch.zeros((G, NB), dtype=torch.bool, device=dev)
     for _ in range(rounds):
-        best_b = torch.argmin(d, dim=1)  # (NA,) first index on ties
-        best_d = torch.gather(d, 1, best_b[:, None])[:, 0]
+        best_b = torch.argmin(d, dim=2)  # (G, NA) first index on ties
+        best_d = torch.gather(d, 2, best_b[..., None])[..., 0]
         want = (match_a < 0) & (best_d < threshold) & ratio_ok
         # B chooses its best proposer: every A's proposal sits in its best
         # B's column, everything else is big
         prop_d = torch.where(want, best_d, big)
-        prop_to_b = torch.full((NA, NB), big, dtype=dist.dtype, device=dev)
-        prop_to_b.scatter_(1, best_b[:, None], prop_d[:, None])
-        min_per_b = torch.amin(prop_to_b, dim=0)  # (NB,)
-        winner_a = torch.argmin(prop_to_b, dim=0)  # (NB,)
+        prop_to_b = torch.full((G, NA, NB), big, dtype=dist.dtype, device=dev)
+        prop_to_b.scatter_(2, best_b[..., None], prop_d[..., None])
+        min_per_b = torch.amin(prop_to_b, dim=1)  # (G, NB)
+        winner_a = torch.argmin(prop_to_b, dim=1)  # (G, NB)
         b_accepts = (min_per_b < big) & ~taken_b
-        # additive scatters: duplicate indices must OR, not overwrite
-        a_wins = torch.zeros(NA, dtype=torch.int32, device=dev).index_add_(
-            0, winner_a, b_accepts.to(torch.int32)) > 0
-        a_wins = a_wins & want & (winner_a[best_b] == rows)
+        # additive int32 scatters (order-free): duplicate indices must OR,
+        # not overwrite
+        a_wins = torch.zeros(G * NA, dtype=torch.int32, device=dev).index_add_(
+            0, (winner_a + off_a).reshape(-1), b_accepts.to(torch.int32).reshape(-1)).view(G, NA) > 0
+        a_wins = a_wins & want & (torch.gather(winner_a, 1, best_b) == rows)
         match_a = torch.where(a_wins, best_b, match_a)
-        taken_b = taken_b | (torch.zeros(NB, dtype=torch.int32, device=dev).index_add_(
-            0, best_b, a_wins.to(torch.int32)) > 0)
+        taken_b = taken_b | (torch.zeros(G * NB, dtype=torch.int32, device=dev).index_add_(
+            0, (best_b + off_b).reshape(-1), a_wins.to(torch.int32).reshape(-1)).view(G, NB) > 0)
         # matched rows/cols leave the market
-        d = torch.where(a_wins[:, None] | taken_b[None, :], big, d)
-    return match_a
+        d = torch.where(a_wins[:, :, None] | taken_b[:, None, :], big, d)
+    return match_a.reshape(*lead, NA)
 
 
 def match_descriptors(desc_a, desc_b, mask_a, mask_b, threshold: int = 60, rounds: int = 3
                       ) -> torch.Tensor:
-    """Distance matrix + one-to-one assignment. threshold=60 is the
-    reference's BRISK matching threshold."""
+    """Distance matrix + one-to-one assignment, over the same leading batch
+    as masked_distance_matrix. threshold=60 is the reference's BRISK
+    matching threshold."""
     d = masked_distance_matrix(desc_a, desc_b, mask_a, mask_b)
     return mutual_best_assignment(d, threshold, rounds=rounds)

@@ -343,3 +343,78 @@ def test_estimator_on_the_card_matches_cpu_float64(cuda):
     tol_m, _ = ESTIMATOR_GATES["optimize"]["f64"]
     sl = win["slots"]
     assert np.abs(win["r_WS"][sl] - ref["r_WS"][sl]).max() < tol_m
+
+
+_ASSOC_ORDER = ("desc_a", "sel3d", "hp", "free2", "uv_a", "std_a", "T_WS_b", "sb_b", "T_WC_a", "desc_b", "free_b",
+                "uv_b", "std_b", "sel_prev", "pts_prev", "T_SC")
+
+
+def _association_call(d, u, device, dtype):
+    """A call of associate_multicam on the scene's numpy inputs, uploaded to
+    `device` now, with the geometry in `dtype` and the stereo pair riding
+    the round."""
+    from okvis_tpu_torch.cameras.pinhole import CameraSpec
+    from okvis_tpu_torch.frontend.kernels import associate_multicam
+    from okvis_tpu_torch.kinematics import SE3
+
+    def t(x):
+        x = np.asarray(x)
+        x = torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(device)
+        return x.to(dtype) if x.is_floating_point() else x
+
+    args = [SE3(r=t(d[k][0]), q=t(d[k][1])) if k.startswith("T_") else t(d[k]) for k in _ASSOC_ORDER]
+    u, intr = t(u), t(d["intr"])  # every input on the device before the call
+    return lambda: associate_multicam(CameraSpec(*d["spec"]), u, intr, *args, 40.0, 9.0, stereo_pairs=((0, 1),))
+
+
+@pytest.fixture(scope="module")
+def association_round():
+    """The association scene at the estimator's width: P = 4 sources, 2
+    cameras, K = 400 keypoint slots (the (8, 400, 400) Hamming batch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import association_scene, euroc_stereo_rig
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    d = association_scene(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr), P=4, K=400)
+    u = np.random.default_rng(1).uniform(size=(2, 64, 3))
+    return d, u
+
+
+def test_association_on_the_card_matches_cpu_float64(association_round):
+    """The round in float32 on the card against the port's float64 CPU run:
+    on this well-separated scene (true matches 6 bits apart, others ~256)
+    the assignments, the stereo assignment and the RANSAC verdict agree."""
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    d, u = association_round
+    before = hamming_matrix_cuda.launches
+    card = _association_call(d, u, "cuda", torch.float32)()
+    assert hamming_matrix_cuda.launches == before + 3  # 3D-2D, 2D-2D, the stereo pair
+    cpu = _association_call(d, u, "cpu", torch.float64)()
+    for i in (0, 1):
+        assert torch.equal(card[i].cpu(), cpu[i]), i
+    assert torch.equal(card[9][0].cpu(), cpu[9][0])
+    assert (cpu[0] >= 0).sum() > 100 and bool(card[8]) == bool(cpu[8])
+    assert abs(int(card[7]) - int(cpu[7])) <= 2
+
+
+def test_association_on_the_card_has_no_host_sync(association_round):
+    d, u = association_round
+    call = _association_call(d, u, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_association_on_the_card_is_bitwise_repeatable(association_round):
+    d, u = association_round
+    call = _association_call(d, u, "cuda", torch.float32)
+    a, b = call(), call()
+    flat = lambda out: [*out[:9], *out[9]]  # noqa: E731
+    for i, (x, y) in enumerate(zip(flat(a), flat(b))):
+        assert torch.equal(x, y), i

@@ -134,3 +134,22 @@ def test_small_integer_distance_matrix_assignment():
         want = np.asarray(jham.mutual_best_assignment(jnp.asarray(d), 4, rounds=rounds))
         got = tham.mutual_best_assignment(torch.from_numpy(d), 4, rounds=rounds).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("strided", ["desc_a", "desc_b", "mask_a", "mask_b"])
+def test_masked_matrix_refuses_strided_inputs_on_the_cpu(strided):
+    """The kernel refuses strided rows; the CPU route refuses them too, so a
+    CPU run of a caller meets the rule the card holds it to. A camera's slice
+    of a (P, C, K, 16) stack is strided until it is made contiguous."""
+    rng = np.random.default_rng(11)
+    stack = _t(_desc(rng, 3 * 2 * 40).reshape(3, 2, 40, 16))
+    masks = torch.from_numpy(rng.uniform(size=(3, 2, 40)) > 0.2)
+    args = dict(desc_a=stack[:, 0].contiguous(), desc_b=stack[:, 1].contiguous(),
+                mask_a=masks[:, 0].contiguous(), mask_b=masks[:, 1].contiguous())
+    want = tham.masked_distance_matrix(**args)
+    args[strided] = (stack if strided.startswith("desc") else masks)[:, 0 if strided.endswith("a") else 1]
+    assert not args[strided].is_contiguous()
+    with pytest.raises(ValueError, match=f"{strided} must be contiguous"):
+        tham.masked_distance_matrix(**args)
+    args[strided] = args[strided].contiguous()
+    assert torch.equal(tham.masked_distance_matrix(**args), want)

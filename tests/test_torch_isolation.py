@@ -36,13 +36,14 @@ def test_importing_every_module_loads_no_jax_or_okvis_tpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=120, check=True).stdout.splitlines()
-    assert int(out[0]) >= 44  # every module of the three slices was imported
+    assert int(out[0]) >= 50  # every module of the four slices was imported
     loaded = out[1].split()
     for name in ("frontend.frontend", "imu.preintegration", "imu.ode", "factors.imu_factor",
                  "factors.reprojection", "factors.priors", "kinematics.local_parameterization",
                  "solver.structure", "solver.assemble", "solver.optimize", "estimator.marginalization",
                  "estimator.estimator", "utils.ids", "utils.timing", "utils.syncstats", "utils.capture",
-                 "linalg", "convert"):
+                 "linalg", "convert", "frontend.ransac", "frontend.keyframe", "frontend.fivepoint",
+                 "frontend.kernels", "kinematics.np_se3", "eval.ate"):
         assert f"okvis_tpu_torch.{name}" in loaded, name
     bad = [m for m in loaded if _is_forbidden(m)]
     assert not bad, bad
@@ -75,11 +76,17 @@ def _rig_from_numpy(device=None):
                           [np.asarray([461.4, 460.2, 363.0, 248.1, -0.28, 0.07, 2e-4, 1.8e-5])], device=device)
 
 
+def _frame_arrays(K=4):
+    return (np.zeros((K, 2)), np.zeros(K), np.ones(K, bool), np.zeros((K, 16), np.uint32), np.zeros(K, np.int64))
+
+
 def _entry_points():
     from okvis_tpu_torch import kinematics, resolve_device
     from okvis_tpu_torch.cameras import pinhole
     from okvis_tpu_torch.convert import (
-        estimator_from_numpy, estimator_to_numpy, imu_params_from_numpy, problem_from_numpy, problem_to_numpy)
+        estimator_from_numpy, estimator_to_numpy, frame_from_numpy, imu_params_from_numpy, multiframe_from_numpy,
+        problem_from_numpy, problem_to_numpy)
+    from okvis_tpu_torch.frontend.frontend import Frontend
     from okvis_tpu_torch.estimator import Estimator
     from okvis_tpu_torch.datasets.synthetic import build_ba_problem, euroc_stereo_rig
     from okvis_tpu_torch.imu import ImuParams
@@ -99,6 +106,11 @@ def _entry_points():
         "problem_from_numpy": lambda: problem_from_numpy(problem_to_numpy(empty_problem(tiny, device="cpu"))),
         "build_ba_problem": lambda: build_ba_problem(num_frames=2, frame_stride=4, n_landmarks=8, duration=0.1),
         "estimator": lambda: Estimator(_rig_from_numpy("cpu"), ImuParams.euroc(device="cpu")),
+        "frontend": lambda: Frontend(_rig_from_numpy()),
+        "frame_from_numpy": lambda: frame_from_numpy(*_frame_arrays()),
+        "multiframe_from_numpy": lambda: multiframe_from_numpy(
+            dict(id=1, timestamp=0.0, frames=[dict(zip(("uv", "score", "mask", "descriptors", "landmark_ids"),
+                                                       _frame_arrays()))])),
         "estimator_from_numpy": lambda: estimator_from_numpy(
             estimator_to_numpy(Estimator(_rig_from_numpy("cpu"), ImuParams.euroc(device="cpu"), cfg=tiny,
                                          device="cpu")),
@@ -169,3 +181,24 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace(name, replaces):
     head = (PKG / "csrc" / name).read_text().split("#include")[0]
     assert f"Replaces the TPU kernel {replaces}" in " ".join(head.split()).replace("// ", "")
     assert "What bounds it on the H100" in head and "Design:" in head
+
+
+def test_association_round_runs_on_cpu_without_a_card(no_cuda):
+    """A whole association round on CPU tensors (the plain Hamming version)
+    never asks for the card."""
+    from okvis_tpu_torch.cameras.pinhole import CameraSpec
+    from okvis_tpu_torch.datasets.synthetic import association_scene, euroc_stereo_rig
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.frontend.kernels import associate_multicam
+    from okvis_tpu_torch.kinematics import SE3
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    d = association_scene(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr), P=1, K=16)
+    t = lambda x: torch.from_numpy(np.asarray(x).view(np.int32) if np.asarray(x).dtype == np.uint32  # noqa: E731
+                                   else np.asarray(x))
+    order = ("desc_a", "sel3d", "hp", "free2", "uv_a", "std_a", "T_WS_b", "sb_b", "T_WC_a", "desc_b", "free_b",
+             "uv_b", "std_b", "sel_prev", "pts_prev", "T_SC")
+    args = [SE3(r=t(d[k][0]), q=t(d[k][1])) if k.startswith("T_") else t(d[k]) for k in order]
+    out = associate_multicam(CameraSpec(*d["spec"]), torch.rand((2, 64, 3), dtype=torch.float64), t(d["intr"]),
+                             *args, 40.0, 9.0, stereo_pairs=((0, 1),))
+    assert out[0].shape == (1, 2, 16) and out[0].device.type == "cpu"
