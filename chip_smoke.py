@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the okvis_tpu_torch vision slice, back end, estimator and the
-per-frame VIO loop on one CUDA card and check them.
+"""Drive the okvis_tpu_torch vision slice, back end, estimator, the
+per-frame VIO loop and the runtime (ThreadedVio) on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -63,10 +64,26 @@ per-frame VIO loop on one CUDA card and check them.
    against that run), both kernels on the path (Harris
    once a frame, Hamming at the (P·C, 400, 400) association shape), the
    Hamming kernel to its plain version at that shape, and the rerun to
-   bitwise equality; prints the `vio` line.
+   bitwise equality; prints the `vio` line;
+13. runs the runtime phase: the same 20 frames through the port's
+   ThreadedVio (VioParameters built in code: the EuRoC defaults, 400
+   keypoints, threshold 40) in blocking mode in float32, fed as
+   tests/test_vision_e2e.py feeds (the IMU up to 25 ms past a frame, both
+   images, wait_idle; timestamps rounded to the ns), with a propagated-state callback, a
+   transferred-landmarks callback and a state CSV file, twice: the first
+   run profiled over RUNTIME_PROFILE_FRAMES and checkpointed after
+   RUNTIME_CHECKPOINT_AFTER frames (save_checkpoint, load_checkpoint into a
+   fresh ThreadedVio, the window restored exactly), the second timed;
+   holds it to RUNTIME_GATES (every frame processed, frames tracked, ATE,
+   landmarks, keyframes and first tracked frame against the JAX
+   ThreadedVio's float32 CPU run, the propagated states, the state CSV),
+   both kernels on the path and the rerun to bitwise equality; prints the
+   `runtime_frames` and `runtime` lines (Timing stages, frame ms, optimize
+   latencies, publishing ms a sample, syncs, busy share, the frame ms over
+   the vio phase's).
 
-Prints the `kernels` JSON line (each kernel's `launches` from the vio loop,
-the other paths' in `launches_by_path`), and as its last line
+Prints the `kernels` JSON line (each kernel's `launches` from the runtime's
+first run, the other paths' in `launches_by_path`), and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
 ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 """
@@ -179,6 +196,30 @@ JAX_VIO = dict(
 # float32 run on the card and the port's float32 run on the CPU
 # (run_vio(vio_scene(), dev="cpu")).
 VIO_GATES = dict(frames_tracked=17, ate_m=0.15, ate_margin_m=0.003, landmarks=30, landmarks_rel=0.1)
+
+# The runtime phase: the vio phase's 20 frames through the port's
+# ThreadedVio (runtime_params: EuRoC defaults, 400 keypoints, threshold 40)
+# in blocking mode on the card in float32, fed as tests/test_vision_e2e.py
+# feeds, twice; the first run profiled over RUNTIME_PROFILE_FRAMES and
+# checkpointed after RUNTIME_CHECKPOINT_AFTER frames.
+RUNTIME_PROFILE_FRAMES = (10, 15)
+RUNTIME_CHECKPOINT_AFTER = 10
+RUNTIME_STAGES = ("1.x detectAndDescribe", "2.1 addStates", "2.4 matching", "3.1 optimization",
+                  "3.2 marginalization")
+# The JAX package's ThreadedVio on the same frames on the CPU
+# (scripts/jax_threaded_vio.py; a CPU run, not a device metric)
+JAX_RUNTIME = dict(
+    float32=dict(ate_m=0.02046147277096787, frames_tracked=20, landmarks=129, keyframes=6, initialized_at_frame=2,
+                 propagated=380, propagated_last60_error_m=0.030185673312975697),
+    float64=dict(ate_m=0.017614342699681707, frames_tracked=20, landmarks=201, keyframes=6, initialized_at_frame=2,
+                 propagated=380, propagated_last60_error_m=0.04909388003401767),
+)
+# Gates: VIO_GATES' (at least 17 of 20 frames tracked, ATE under the JAX
+# test's bound and within 0.003 m of the JAX float32 CPU run, landmarks
+# within 10 % of its count, its keyframes and its first tracked frame), and
+# the median position error of the last 60 propagated states under
+# tests/test_pipeline.py:229's 0.05 m
+RUNTIME_GATES = dict(VIO_GATES, propagated_error_m=0.05)
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # Operations a second by class, without FMA. The data sheet's 67 TFLOP/s in
@@ -1406,7 +1447,305 @@ def check_vio() -> dict:
         fails.append(f"a kernel of the path was never launched: {launches}")
     if fails:
         raise SmokeError("vio phase: " + "; ".join(fails))
-    return dict(launches=launches, association=assoc)
+    return dict(launches=launches, association=assoc, frame_ms=line["frame_ms"]["median"], arrays=result["arrays"])
+
+
+# ---------------------------------------------------------------------------
+# the runtime phase: the vio scene through the port's ThreadedVio
+# ---------------------------------------------------------------------------
+
+
+def runtime_params():
+    """VioParameters built in code: the EuRoC defaults, VIO_KEYPOINTS
+    keypoints a camera at threshold 40."""
+    from okvis_tpu_torch.config import VioParameters
+
+    p = VioParameters()
+    p.optimization.max_num_keypoints = VIO_KEYPOINTS
+    p.optimization.detection_threshold = 40.0
+    return p
+
+
+def runtime_checkpoint(vio, directory: str) -> dict:
+    """save_checkpoint, then load_checkpoint into a fresh ThreadedVio on the
+    same device: whether each field of the restored window
+    (convert.estimator_to_numpy) equals the saved one exactly, and where
+    the restored marginal prior lives."""
+    import torch
+
+    from okvis_tpu_torch import convert
+    from okvis_tpu_torch.pipeline import ThreadedVio
+
+    path = f"{directory}/vio.ckpt"
+    vio.save_checkpoint(path)
+    fresh = ThreadedVio(runtime_params(), rig=vio.rig, blocking=True, dtype=torch.float32, device=vio.device)
+    try:
+        fresh.load_checkpoint(path)
+        a, b = convert.estimator_to_numpy(vio.estimator), convert.estimator_to_numpy(fresh.estimator)
+        prior = fresh.estimator.marg_H
+        return dict(same={k: same_values(a[k], b[k]) for k in a}, frames=len(a["states"]),
+                    landmarks=len(a["landmarks"]), multiframes=len(fresh.estimator.multiframes),
+                    prior_device=str(prior.device) if isinstance(prior, torch.Tensor) else "host")
+    finally:
+        fresh.shutdown()
+
+
+def same_values(a, b) -> bool:
+    """Exact equality of nested plain values and numpy arrays."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_values(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_values(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(a, b))
+    return a == b
+
+
+def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=None):
+    """The vio scene through the port's ThreadedVio in blocking mode in
+    float32 (runtime_params, the EuRoC rig with overlaps), fed as
+    tests/test_vision_e2e.py feeds, with timestamps rounded to the ns
+    (utils.time.ns_from_sec): the IMU up to 25 ms past a frame (each
+    add_imu_measurement timed on the host: it propagates and publishes the
+    state synchronously), both images, wait_idle. A propagated-state
+    callback, a transferred-landmarks callback and a state CSV file are set.
+    Per frame: the host ms from the first add_image to wait_idle's return,
+    syncstats, the kernels' launches, the association-shape Hamming
+    launches, and the keypoint-to-landmark ids. With `profile`, the frames of
+    RUNTIME_PROFILE_FRAMES run under torch.profiler; with `checkpoint_dir`,
+    runtime_checkpoint runs after RUNTIME_CHECKPOINT_AFTER frames. Returns a
+    namespace of the run's records."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+    from okvis_tpu_torch.frontend import kernels
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+    from okvis_tpu_torch.pipeline import ThreadedVio
+    from okvis_tpu_torch.utils import syncstats
+    from okvis_tpu_torch.utils.ids import IdProvider
+    from okvis_tpu_torch.utils.time import ns_from_sec
+    from okvis_tpu_torch.utils.timing import Timing
+
+    specs, T_SC, intr = euroc_stereo_rig(device=dev)
+    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+    rig.compute_overlaps()
+    IdProvider.reset()
+    Timing.reset()
+    vio = ThreadedVio(runtime_params(), rig=rig, blocking=True, dtype=torch.float32, device=dev)
+    out = SimpleNamespace(vio=vio, rows=[], published=[], transferred=[], mfs=[], checkpoint=None, profile=None,
+                          stages=None, csv_rows=None)
+    vio.propagated_state_callback = lambda t, T, sb: out.published.append((t, T.r.numpy().copy()))
+    vio.transferred_landmarks_callback = lambda t, lms: out.transferred.append((t, sorted(lms)))
+    assoc = vio.frontend.data_association_and_initialization
+
+    def record(est, T_WS, mf, sb_prop=None):
+        out.mfs.append(mf)
+        return assoc(est, T_WS, mf, sb_prop=sb_prop)
+
+    vio.frontend.data_association_and_initialization = record
+    shapes = []
+    orig_mdm = kernels.masked_distance_matrix
+
+    def mdm(*args):
+        res = orig_mdm(*args)
+        shapes.append(res.dim() == 3)  # the association round's (P·C, K, K) batch
+        return res
+
+    kernels.masked_distance_matrix = mdm
+    traj = scene.traj
+    # the runtime's clock: seconds rounded to the nearest ns (the IMU
+    # samples are multiples of 5 ms), the clock vio_imu_slice gives the vio
+    # phase, so both card paths see the same numbers
+    ts_ns = [int(ns_from_sec(t)) for t in traj.ts]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    a, b = RUNTIME_PROFILE_FRAMES
+    imu_i, prof, n_opt = 0, None, 0
+    tmp = tempfile.TemporaryDirectory()
+    csv = f"{tmp.name}/state.csv"
+    try:
+        vio.set_state_csv_file(csv)
+        for fi, (t, images) in enumerate(zip(scene.times, scene.images)):
+            if profile and fi == a:
+                sync()
+                prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            syncstats.reset()
+            n_shapes, harris0, ham0 = len(shapes), harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
+            t_ns = int(ns_from_sec(t))
+            imu_ms = []
+            while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
+                t0 = time.perf_counter()
+                vio.add_imu_measurement(ts_ns[imu_i], traj.gyro[imu_i], traj.acc[imu_i])
+                imu_ms.append(1e3 * (time.perf_counter() - t0))
+                imu_i += 1
+            t0 = time.perf_counter()
+            for c, image in enumerate(images):
+                vio.add_image(t_ns, c, image)
+            vio.wait_idle(timeout=120)
+            frame_ms = 1e3 * (time.perf_counter() - t0)
+            state = vio.trajectory[-1] if vio.trajectory and vio.trajectory[-1].timestamp_ns == t_ns else None
+            i = int(round(t * 200))
+            out.rows.append(dict(
+                frame=fi, frame_ms=frame_ms, imu_ms=imu_ms, syncs=syncstats.snapshot(), profiled=prof is not None, tracked=state is not None,
+                keyframe=bool(state is not None and state.is_keyframe), initialized=vio.frontend.is_initialized,
+                harris=harris_suppressed_cuda.launches - harris0, hamming=hamming_matrix_cuda.launches - ham0,
+                hamming_association=sum(shapes[n_shapes:]), landmarks=vio.estimator.num_landmarks(),
+                position=None if state is None else float(np.linalg.norm(state.T_WS.r.numpy() - traj.r[i])),
+                lids=[f.landmark_ids.copy() for f in out.mfs[-1].frames] if state is not None else None))
+            if fi == 1:  # two warm-up frames: the Timing table and latencies from here on
+                Timing.reset()
+                n_opt = len(vio.opt_latencies)
+            if checkpoint_dir is not None and fi + 1 == RUNTIME_CHECKPOINT_AFTER:
+                out.checkpoint = runtime_checkpoint(vio, checkpoint_dir)
+            if prof is not None and fi == b - 1:
+                wall_ms = 1e3 * (time.perf_counter() - t_prof)
+                prof.__exit__(None, None, None)
+                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
+                out.profile = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
+                                   device_busy_share=kernel_ms / wall_ms,
+                                   launches_per_frame=sum(e.count for e in kern) / (b - a))
+                prof = None
+        out.stages = {name: dict(count=acc.count, mean_ms=1e3 * acc.mean, min_ms=1e3 * acc.min, max_ms=1e3 * acc.max)
+                      for name, acc in Timing._timers.items() if name in RUNTIME_STAGES}
+        out.opt_latencies_ms = [1e3 * x for x in vio.opt_latencies[n_opt:]]
+    finally:
+        kernels.masked_distance_matrix = orig_mdm
+        try:
+            vio.shutdown()
+        finally:
+            with open(csv) as f:
+                out.csv_rows = len(f.read().splitlines()) - 1
+            tmp.cleanup()
+    out.frames_fed, out.frames_processed = len(scene.times), vio._frames_processed
+    return out
+
+
+def runtime_result(out, traj) -> dict:
+    """The runtime's ATE and counts, as vio_result gives the vio loop's, with
+    the arrays of the rerun comparison."""
+    from okvis_tpu_torch.eval.ate import ate_rmse
+
+    states = out.vio.trajectory
+    est = out.vio.estimator
+    lm = sorted(est.landmarks.values(), key=lambda r: r.id)
+    init = [r["frame"] for r in out.rows if r["initialized"]]
+    return dict(
+        ate_m=ate_rmse(np.asarray([s.timestamp_ns for s in states], np.int64),
+                       np.stack([s.T_WS.r.numpy() for s in states]), (traj.ts * 1e9).astype(np.int64), traj.r),
+        frames_tracked=len(states), landmarks=est.num_landmarks(), keyframes=sum(s.is_keyframe for s in states),
+        initialized_at_frame=init[0] if init else None,
+        arrays=dict(
+            trajectory=np.stack([np.concatenate([s.T_WS.r.numpy(), s.T_WS.q.numpy()]) for s in states]),
+            landmark_ids=np.asarray([r.id for r in lm]), landmark_slots=np.asarray([r.slot for r in lm]),
+            hp_W=est.hp_W.copy(),
+            keypoint_landmarks=np.stack([np.stack(r["lids"]) for r in out.rows if r["lids"] is not None])))
+
+
+def check_runtime(vio: dict, dev: str = "cuda") -> dict:
+    """The runtime phase: the vio scene through the port's ThreadedVio on
+    the card, twice (the first run profiled over RUNTIME_PROFILE_FRAMES and
+    checkpointed after RUNTIME_CHECKPOINT_AFTER frames, the second timed);
+    the gates of RUNTIME_GATES; both hand kernels on the path. `vio` is
+    check_vio's result: its median frame ms and arrays, which the `runtime`
+    line compares with. Prints the `runtime_frames` and `runtime` lines;
+    returns the first run's kernel launches for the `kernels` line."""
+    import tempfile
+
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    scene = vio_scene()
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    with tempfile.TemporaryDirectory() as ckpt:
+        run1 = run_runtime(scene, dev, profile=dev == "cuda", checkpoint_dir=ckpt)
+    launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+    result = runtime_result(run1, scene.traj)
+    run2 = run_runtime(scene, dev)
+    result2 = runtime_result(run2, scene.traj)
+    same = {k: bool(np.array_equal(result["arrays"][k], result2["arrays"][k])) for k in result["arrays"]}
+    print("runtime_frames", json.dumps([{k: r[k] for k in ("frame", "tracked", "keyframe", "initialized", "landmarks",
+                                                           "harris", "hamming", "hamming_association", "position",
+                                                           "frame_ms", "profiled")} for r in run1.rows]))
+
+    # time statistics from the second run (no profiler) after two warm-up
+    # frames; the busy share and launches from the first run's profiled frames
+    timed = run2.rows[2:]
+    frame_ms = [r["frame_ms"] for r in timed]
+    first_state = run1.vio.trajectory[0].timestamp_ns
+    publish_ms = [ms for r in timed for ms in r["imu_ms"]]
+    counters = sorted({k for r in timed for k in r["syncs"]})
+    published = run1.published
+    # the last 60 samples, as tests/test_pipeline.py:226 takes them
+    pub_err = [float(np.linalg.norm(p - scene.traj.r[int(round(t / 1e9 * 200))])) for t, p in published[-60:]]
+    line = dict(
+        frames=len(run1.rows), timed_frames=len(timed), keypoints=VIO_KEYPOINTS, dtype="float32",
+        window=dict(S=9, L=512, O=2048), solver="LM + Newton-Schulz", mode="blocking",
+        stages=run2.stages, frame_ms=dict(median=statistics.median(frame_ms), max=max(frame_ms)),
+        opt_latencies_ms=dict(p50=float(np.percentile(run2.opt_latencies_ms, 50)),
+                              p99=float(np.percentile(run2.opt_latencies_ms, 99))),
+        publish_ms_per_imu_sample=dict(median=statistics.median(publish_ms), mean=statistics.fmean(publish_ms),
+                                       samples=len(publish_ms)),
+        syncs_per_frame={k: sum(r["syncs"].get(k, 0) for r in timed) / len(timed) for k in counters},
+        frame_ms_over_vio_phase=statistics.median(frame_ms) - vio["frame_ms"], vio_phase_frame_ms=vio["frame_ms"],
+        # the same frames and clock as the vio phase: the same bits expected
+        equal_to_vio_phase={k: bool(np.array_equal(v, vio["arrays"][k])) for k, v in result["arrays"].items()},
+        profile=run1.profile, launches=launches,
+        harris_per_frame=sorted({r["harris"] for r in run1.rows}),
+        hamming_association_per_frame=sum(r["hamming_association"] for r in run1.rows[1:]) / (len(run1.rows) - 1),
+        propagated=dict(count=len(published), first_ns=published[0][0] if published else None,
+                        first_state_ns=first_state,
+                        last60_median_position_error_m=statistics.median(pub_err) if pub_err else None),
+        transferred_landmarks=sum(len(ids) for _, ids in run1.transferred),
+        state_csv_rows=run1.csv_rows, frames_fed=run1.frames_fed, frames_processed=run1.frames_processed,
+        checkpoint=run1.checkpoint, bitwise_equal_rerun=same, position_error_m=[r["position"] for r in run1.rows],
+        jax_cpu_reference=JAX_RUNTIME)
+    line.update({k: v for k, v in result.items() if k != "arrays"})
+    print("runtime", json.dumps(line))
+
+    gates, ref = RUNTIME_GATES, JAX_RUNTIME["float32"]
+    fails = []
+    for run in (run1, run2):
+        if run.frames_processed != run.frames_fed:
+            fails.append(f"{run.frames_processed} of {run.frames_fed} frames processed")
+    if result["frames_tracked"] < gates["frames_tracked"]:
+        fails.append(f"{result['frames_tracked']} frames tracked")
+    if not (result["ate_m"] is not None and result["ate_m"] < gates["ate_m"]
+            and result["ate_m"] <= ref["ate_m"] + gates["ate_margin_m"]):
+        fails.append(f"ATE {result['ate_m']}")
+    if abs(result["landmarks"] - ref["landmarks"]) > gates["landmarks_rel"] * ref["landmarks"]:
+        fails.append(f"{result['landmarks']} landmarks")
+    if result["keyframes"] != ref["keyframes"]:
+        fails.append(f"{result['keyframes']} keyframes")
+    if result["initialized_at_frame"] != ref["initialized_at_frame"]:
+        fails.append(f"tracking initialized at frame {result['initialized_at_frame']}")
+    if line["harris_per_frame"] != [1]:
+        fails.append(f"Harris launches a frame {line['harris_per_frame']}")
+    if min(r["hamming_association"] for r in run1.rows[1:]) < 1:
+        fails.append("a frame after the first made no association-shape Hamming launch")
+    prop = line["propagated"]
+    if not (published and prop["first_ns"] > prop["first_state_ns"]
+            and prop["last60_median_position_error_m"] < gates["propagated_error_m"]):
+        fails.append(f"propagated states {prop}")
+    if run1.csv_rows != result["frames_tracked"]:
+        fails.append(f"{run1.csv_rows} state CSV rows for {result['frames_tracked']} states")
+    if not all(same.values()):
+        fails.append(f"the rerun differs: {same}")
+    ck = run1.checkpoint
+    if ck is None or not all(ck["same"].values()) or ck["prior_device"] == "host":
+        fails.append(f"checkpoint round trip: {ck}")
+    if min(launches.values()) == 0:
+        fails.append(f"a kernel of the path was never launched: {launches}")
+    if fails:
+        raise SmokeError("runtime phase: " + "; ".join(fails))
+    return dict(launches=launches)
 
 
 def kernel_resources(build_log: str, lib) -> dict:
@@ -1497,11 +1836,15 @@ def main() -> int:
     t0 = time.perf_counter()
     vio = check_vio()
     print(f"vio_seconds {time.perf_counter() - t0:.2f}")
-    # `launches` is the vio loop's (this slice's main path); the vision
-    # slice's count stays beside it
+    t0 = time.perf_counter()
+    runtime = check_runtime(vio)
+    print(f"runtime_seconds {time.perf_counter() - t0:.2f}")
+    # `launches` is the runtime's (the main path, through ThreadedVio); the
+    # other paths' counts stay beside it
     for k, name in zip(kernels, ("harris_nms", "hamming")):
-        k["launches_by_path"] = dict(vision=k["launches"], estimator=est_launches[name], vio=vio["launches"][name])
-        k["launches"] = vio["launches"][name]
+        k["launches_by_path"] = dict(vision=k["launches"], estimator=est_launches[name], vio=vio["launches"][name],
+                                     runtime=runtime["launches"][name])
+        k["launches"] = runtime["launches"][name]
     kernels[1]["association"] = vio["association"]
     print(f"smoke_seconds {time.perf_counter() - t_start:.2f}")
     print(smi)

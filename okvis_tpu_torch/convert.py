@@ -237,10 +237,27 @@ def estimator_from_numpy(values: dict, rig: NCameraSystem, imu_params: ImuParams
     """The port's Estimator holding the host state of estimator_to_numpy's
     output (e.g. a JAX Estimator read mid-run): the same slots, ids, records,
     FEJ points and marginal prior, so both packages continue from the same
-    window. The observation-count map and the packed observation mirror are
-    rebuilt from the records."""
+    window."""
     est = Estimator(rig, imu_params, values["num_keyframes"], values["num_imu_frames"], cfg=cfg,
                     dtype=dtype, device=device)
+    load_estimator_state(est, values)
+    return est
+
+
+def load_estimator_state(est: Estimator, values: dict) -> None:
+    """Set the port's Estimator to the host state of estimator_to_numpy's
+    output: slots, ids, records, FEJ points and the marginal prior (as
+    float64 numpy tables). The window sizes and table shapes must be the
+    estimator's own, else ValueError. The observation-count map and the
+    packed observation mirror are rebuilt from the records."""
+    for k in ("num_keyframes", "num_imu_frames"):
+        if values[k] != getattr(est, k):
+            raise ValueError(f"load_estimator_state: {k} {values[k]} != the estimator's {getattr(est, k)}")
+    for k in _ESTIMATOR_ARRAYS:
+        if tuple(np.shape(values[k])) != tuple(getattr(est, k).shape):
+            raise ValueError(f"load_estimator_state: {k} of shape {np.shape(values[k])}, "
+                             f"the estimator's is {tuple(getattr(est, k).shape)}")
+    est._pending_prop = None
     est.states = {s["id"]: StateRecord(**s) for s in values["states"]}
     est.landmarks = {lm["id"]: LandmarkRecord(**lm) for lm in values["landmarks"]}
     est._lm_slot_to_id = dict(values["_lm_slot_to_id"])
@@ -261,4 +278,3 @@ def estimator_from_numpy(values: dict, rig: NCameraSystem, imu_params: ImuParams
     est.fej_ext_frozen = bool(values["fej_ext_frozen"])
     est._rebuild_obs_count()
     est._obs_cols.rebuild(est.observations, est.states, est.landmarks)
-    return est

@@ -24,10 +24,10 @@ Window semantics follow the reference:
   triage (delete / ignore-observation / marginalize) follows the
   reference's hasNewObservations / obsCount rules.
 
-Not ported: the distributed solve (enable_distributed), per-state
-extrinsics (WindowConfig raises for it) and save/load_checkpoint;
-convert.estimator_to_numpy / estimator_from_numpy carry the host state
-across instead.
+Not ported: the distributed solve (enable_distributed) and per-state
+extrinsics (WindowConfig raises for it). save_checkpoint / load_checkpoint
+write and read the port's own file: the host state of
+convert.estimator_to_numpy plus the window's multiframe keypoint tables.
 
 Host syncs: add_states' propagation fetch (unless deferred), one fetch at
 the end of optimize (one device-to-host copy of every pulled table), one
@@ -41,6 +41,7 @@ import dataclasses
 import functools
 import logging
 import os
+import pickle
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -111,6 +112,17 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().to(torch.float64).numpy().copy()
     return np.array(x, np.float64)
+
+
+class WindowFullError(RuntimeError):
+    """add_states found no free state slot: the window is full until
+    apply_marginalization_strategy frees one. The pipeline drops the frame
+    on this refusal alone; any other error (a failed launch, an exhausted
+    card) propagates."""
+
+
+# the first entry of a checkpoint file written by save_checkpoint
+CHECKPOINT_FORMAT = "okvis_tpu_torch.Estimator checkpoint 1"
 
 
 @dataclasses.dataclass
@@ -556,7 +568,7 @@ class Estimator:
             sb = None if defer_fetch else sb_j
 
         if not self._free_state_slots:
-            raise RuntimeError("window full — call apply_marginalization_strategy")
+            raise WindowFullError("window full — call apply_marginalization_strategy")
         slot = self._free_state_slots.pop()
         rec = StateRecord(id=state_id, timestamp=float(timestamp), slot=slot, is_keyframe=as_keyframe)
         self.states[state_id] = rec
@@ -1297,6 +1309,50 @@ class Estimator:
             lm_mask = marg_lm_mask
         return p._replace(states=states, state_mask=self._i(self._state_mask()), lm_mask=self._i(lm_mask),
                           obs=obs, imu_links=links, sb_priors=sp, marg=self._marg_prior())
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume (the JAX package's estimator.py:1863-1948)
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Write the estimator's state for a resume: the host state of
+        convert.estimator_to_numpy (window, landmarks, factor tables, FEJ
+        points, marginal prior) and the window's multiframe keypoint tables
+        (uv, score, mask, descriptors, landmark ids, sizes; no images), as
+        plain values and numpy arrays in a pickle. The file is the port's
+        own: it does not read the JAX package's checkpoint, whose pickle
+        holds JAX arrays, nor does the JAX package read this one."""
+        from .. import convert  # convert imports this module
+
+        blob = dict(format=CHECKPOINT_FORMAT, estimator=convert.estimator_to_numpy(self),
+                    multiframes=[convert.multiframe_to_numpy(mf) for mf in self.multiframes.values()])
+        with open(path, "wb") as f:
+            pickle.dump(blob, f)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a file of save_checkpoint into an estimator built with
+        the same rig and window. A marginal prior goes back to the
+        estimator's device, multiframes to the rig's, and IdProvider moves
+        past every restored id. Unpickles the file: load only files this
+        program wrote."""
+        from .. import convert  # convert imports this module
+
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        if not isinstance(blob, dict) or blob.get("format") != CHECKPOINT_FORMAT:
+            raise ValueError(f"{path}: not a checkpoint of okvis_tpu_torch's Estimator")
+        convert.load_estimator_state(self, blob["estimator"])
+        if self.marg_valid:
+            self.marg_H, self.marg_b0, self.marg_c0 = (self._t(x) for x in (self.marg_H, self.marg_b0, self.marg_c0))
+        self.multiframes = {}
+        for m in blob["multiframes"]:
+            dtype = torch.from_numpy(m["frames"][0]["uv"]).dtype
+            self.multiframes[m["id"]] = convert.multiframe_from_numpy(m, device=self.rig.device, dtype=dtype)
+        # fresh ids must never collide with restored ones, including stale
+        # ids of removed landmarks that frame tables still hold
+        max_seen = max([0, *self.states, *self.landmarks,
+                        *(int(fd.landmark_ids.max()) for mf in self.multiframes.values() for fd in mf.frames
+                          if fd.landmark_ids.size)])
+        IdProvider.advance_past(max_seen)
 
     # ------------------------------------------------------------------
     # getters/setters (Estimator.hpp:424-556); poses come back as float64

@@ -418,3 +418,71 @@ def test_association_on_the_card_is_bitwise_repeatable(association_round):
     flat = lambda out: [*out[:9], *out[9]]  # noqa: E731
     for i, (x, y) in enumerate(zip(flat(a), flat(b))):
         assert torch.equal(x, y), i
+
+
+def _stub_runtime(device, dtype, n_frames=6, K=64):
+    """The port's ThreadedVio in blocking mode on `device` for n_frames
+    keypoint frames of test_torch_threaded_vio.py's world behind a stub
+    detector, with the RANSAC uniforms drawn from one host generator on
+    both devices (the card's and the CPU's generators differ)."""
+    from okvis_tpu_torch import convert
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.config import VioParameters
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, keypoint_frames, make_landmarks, simulate_trajectory
+    from okvis_tpu_torch.pipeline import ThreadedVio
+    from okvis_tpu_torch.utils.ids import IdProvider
+
+    traj = simulate_trajectory(duration=1.2, seed=31, motion_scale=0.25)
+    lms = make_landmarks(traj, 600, seed=32, radius=(4.0, 8.0))
+    specs, T_SC, intr = euroc_stereo_rig(device=device)
+    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+    rig.compute_overlaps()
+    frames = iter(keypoint_frames(traj, lms, rig, n_frames, K, seed=3))
+    params = VioParameters()
+    params.optimization.max_num_keypoints = K
+    IdProvider.reset()
+    vio = ThreadedVio(params, rig=rig, blocking=True, dtype=dtype, device=device)
+    rng = np.random.default_rng(7)
+
+    def draw(shape, high=None):
+        if high is not None:
+            return int(rng.integers(0, high))
+        return torch.from_numpy(rng.uniform(size=shape)).to(device=device, dtype=rig.dtype)
+
+    def detect(images, T_WS=None):
+        f = next(frames)
+        return [convert.frame_from_numpy(f.uv[c], np.ones(K), f.mask[c], f.descriptors[c], np.zeros(K, np.int64),
+                                         device=device, dtype=torch.float32) for c in range(len(images))]
+
+    vio.frontend._draw = draw
+    vio.frontend.detect_and_describe_multi = detect
+    ts_ns = (traj.ts * 1e9).astype(np.int64)
+    imu_i = 0
+    for fi in range(n_frames):
+        t_ns = int(fi * 0.1 * 1e9)
+        while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
+            vio.add_imu_measurement(int(ts_ns[imu_i]), traj.gyro[imu_i], traj.acc[imu_i])
+            imu_i += 1
+        vio.add_image(t_ns, 0, None)
+        vio.add_image(t_ns, 1, None)
+        vio.wait_idle(timeout=120)
+    vio.shutdown()
+    return vio
+
+
+def test_runtime_on_the_card_matches_cpu_float64(cuda):
+    """Six stub-detector frames through ThreadedVio on the card in float32,
+    against the port's float64 CPU run, within the estimator test's
+    position tolerance; the card run keeps its prior and propagation on the
+    card."""
+    from chip_smoke import ESTIMATOR_GATES
+
+    card = _stub_runtime("cuda", torch.float32)
+    ref = _stub_runtime("cpu", torch.float64)
+    assert [(s.timestamp_ns, s.is_keyframe) for s in card.trajectory] == \
+        [(s.timestamp_ns, s.is_keyframe) for s in ref.trajectory]
+    assert len(card.trajectory) == 6 and card.frontend.is_initialized == ref.frontend.is_initialized
+    tol_m, _ = ESTIMATOR_GATES["optimize"]["f64"]
+    for a, b in zip(card.trajectory, ref.trajectory):
+        assert np.abs(a.T_WS.r.numpy() - b.T_WS.r.numpy()).max() < tol_m
+    assert isinstance(card.estimator.marg_H, torch.Tensor) and card.estimator.marg_H.device.type == "cuda"

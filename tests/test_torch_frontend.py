@@ -56,9 +56,7 @@ TOL_QUALITY = 1e-7
 
 def replay_draws(jfe, tfe):
     """Record the keys the JAX frontend splits off, and make the port's
-    _draw return the uniforms (or the integer) the JAX consumer of each key
-    draws: split into C keys for the rig RANSAC's (C, n_hyp, 3), one
-    uniform block otherwise."""
+    _draw replay them (KeyReplay)."""
     keys = []
     orig = jfe._next_key
 
@@ -68,10 +66,22 @@ def replay_draws(jfe, tfe):
         return k
 
     jfe._next_key = record
-    it = iter(keys)
+    tfe._draw = KeyReplay(keys)
+    return keys
 
-    def draw(shape, high=None):
-        k = next(it)
+
+class KeyReplay:
+    """A port Frontend._draw returning, from key `start` of `keys` on, the
+    uniforms (or the integer) the JAX consumer of each key draws: split into
+    C keys for the rig RANSAC's (C, n_hyp, 3), one uniform block otherwise.
+    `pos` is the next key's index."""
+
+    def __init__(self, keys, start=0):
+        self.keys, self.pos = keys, start
+
+    def __call__(self, shape, high=None):
+        k = self.keys[self.pos]
+        self.pos += 1
         if high is not None:
             return int(jax.random.randint(k, (), 0, high))
         if len(shape) == 3:
@@ -79,9 +89,6 @@ def replay_draws(jfe, tfe):
         else:
             u = np.array(jax.random.uniform(k, shape))
         return torch.from_numpy(u)
-
-    tfe._draw = draw
-    return keys
 
 
 def jax_frame(uv, mask, desc, lids, K):

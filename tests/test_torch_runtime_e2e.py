@@ -1,0 +1,141 @@
+"""Port analogs of the JAX package's four long runtime tests, slow-marked
+as those are: the port's ThreadedVio on the CPU in float64, blocking mode,
+VioParameters built in code (the EuRoC defaults), fed as the JAX tests feed.
+Each test also runs the JAX package's ThreadedVio on the same inputs and
+prints its ATE beside the port's, as the reference; the bounds are the JAX
+tests' own.
+
+- tests/test_pipeline.py:141: a stub detector (keypoint frames of
+  datasets.synthetic.keypoint_frames, pixel noise 0.4, 6 bits flipped a
+  view), 30 frames, ATE < 0.05 m, the timing table names the stages;
+- tests/test_vision_e2e.py:60: rendered images through real detection, 14
+  frames, ATE < 0.15 m, more than 30 landmarks;
+- tests/test_pipeline.py:190: IMU-rate publishing, more than 100
+  propagated states, the last 60 within a median 0.05 m of the truth;
+- tests/test_pipeline.py:409: a 70-frame soak, the window's capacities and
+  slot accounting bounded every frame, the IMU buffer trimmed, ATE < 0.1 m.
+
+The port draws its RANSAC samples from its own generator here (the JAX
+keys are not replayed), so the two runs agree in bounds, not to the bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from okvis_tpu.config.parameters import VioParameters as JVioParameters
+from okvis_tpu.eval.ate import ate_rmse
+from okvis_tpu.pipeline import ThreadedVio as JThreadedVio
+from okvis_tpu_torch.config import VioParameters
+from okvis_tpu_torch.datasets.synthetic import keypoint_frames, make_landmarks, simulate_trajectory, vio_scenario
+from okvis_tpu_torch.pipeline import ThreadedVio
+from test_torch_estimator import jax_rig, port_rig
+from test_torch_frontend import jax_frame, port_frame
+from test_torch_threaded_vio import Harness
+
+pytestmark = pytest.mark.slow
+torch.set_num_threads(2)
+NS = 1_000_000_000
+
+
+def _pair(n_keypoints=96, threshold=None):
+    """The JAX and port ThreadedVio on rigs with overlaps, float64 on the
+    CPU, with tests/test_pipeline.py's parameters."""
+    jp, p = JVioParameters(), VioParameters()
+    for params in (jp, p):
+        params.optimization.max_num_keypoints = n_keypoints
+        if threshold is not None:
+            params.optimization.detection_threshold = threshold
+    jrig, trig = jax_rig(), port_rig()
+    jrig.compute_overlaps()
+    trig.compute_overlaps()
+    return (JThreadedVio(jp, rig=jrig, blocking=True, dtype=jnp.float64),
+            ThreadedVio(p, rig=trig, blocking=True, dtype=torch.float64, device="cpu"))
+
+
+def _ate(vio, traj):
+    est_ts = np.asarray([s.timestamp_ns for s in vio.trajectory])
+    est_p = np.stack([np.asarray(s.T_WS.r, np.float64) for s in vio.trajectory])
+    return ate_rmse(est_ts, est_p, (traj.ts * NS).astype(np.int64), traj.r)
+
+
+def _stub_run(traj, lms, n_frames, n_keypoints=96, seed=0, each_frame=None):
+    """Both packages through the same stub keypoint frames; returns the
+    harnesses and the shutdown timing tables."""
+    frames = keypoint_frames(traj, lms, port_rig(), n_frames, n_keypoints, seed=seed, pixel_noise=0.4)
+    jvio, tvio = _pair(n_keypoints)
+    out = []
+    for vio, make_frame in ((jvio, jax_frame), (tvio, port_frame)):
+        h = Harness(vio, frames, make_frame)
+        h.record_callbacks()
+        for fi in range(n_frames):
+            h.feed(traj, fi)
+            if each_frame is not None:
+                each_frame(vio)
+        out.append((h, vio.shutdown()))
+    return out
+
+
+def test_threaded_vio_synthetic_tracking():
+    traj = simulate_trajectory(duration=3.5, seed=21, motion_scale=0.5)
+    lms = make_landmarks(traj, 220, seed=22, radius=(3.0, 10.0))
+    (jh, _), (th, table) = _stub_run(traj, lms, 30)
+    ate, jate = _ate(th.vio, traj), _ate(jh.vio, traj)
+    print(f"stub tracking ATE: port {ate:.5f} m, JAX {jate:.5f} m")
+    assert len(th.vio.trajectory) >= 27
+    assert ate < 0.05, f"ATE {ate:.4f} m (JAX {jate:.4f} m)\n{table}"
+    assert "3.1 optimization" in table
+
+
+def test_full_vision_tracking():
+    specs_rig = port_rig()
+    specs_rig.compute_overlaps()
+    scene = vio_scenario(specs_rig, 14)
+    jvio, tvio = _pair(200, threshold=15.0)
+    for vio in (jvio, tvio):
+        h = Harness(vio)
+        for fi, images in enumerate(scene.images):
+            h.feed(scene.traj, fi, images=images)
+        vio.shutdown()
+        assert len(vio.trajectory) >= 11, f"tracked {len(vio.trajectory)} frames"
+    ate, jate = _ate(tvio, scene.traj), _ate(jvio, scene.traj)
+    print(f"full-vision ATE: port {ate:.5f} m, JAX {jate:.5f} m; landmarks port {tvio.estimator.num_landmarks()}, "
+          f"JAX {jvio.estimator.num_landmarks()}")
+    assert ate < 0.15, f"full-vision ATE {ate:.4f} m (JAX {jate:.4f} m)"
+    assert tvio.estimator.num_landmarks() > 30
+
+
+def test_imu_rate_propagated_state_publishing():
+    traj = simulate_trajectory(duration=1.2, seed=51, motion_scale=0.4)
+    lms = make_landmarks(traj, 200, seed=52, radius=(3.0, 9.0))
+    (jh, _), (th, _) = _stub_run(traj, lms, 10)
+    errs = {}
+    for name, h in (("port", th), ("jax", jh)):
+        errs[name] = float(np.median([np.linalg.norm(r - traj.r[int(round(t / NS * 200))])
+                                      for t, r, _q, _sb in h.published[-60:]]))
+    print(f"propagated-state error: port {errs['port']:.5f} m, JAX {errs['jax']:.5f} m")
+    assert len(th.published) > 100 and len(th.published) == len(jh.published)
+    assert th.published[0][0] > th.vio.trajectory[0].timestamp_ns
+    assert errs["port"] < 0.05, errs
+
+
+def test_long_soak_capacities_bounded():
+    traj = simulate_trajectory(duration=7.2, seed=91, motion_scale=0.5)
+    lms = make_landmarks(traj, 260, seed=92, radius=(3.0, 10.0))
+
+    def invariants(vio):
+        est = vio.estimator
+        assert est.num_frames() <= est.cfg.num_states
+        assert est.num_landmarks() <= est.cfg.max_landmarks
+        assert len(est.observations) <= est.cfg.max_observations
+        # slot accounting never leaks
+        assert est.num_frames() + len(est._free_state_slots) == est.cfg.num_states
+        assert est.num_landmarks() + len(est._free_lm_slots) == est.cfg.max_landmarks
+
+    (jh, _), (th, _) = _stub_run(traj, lms, 70, each_frame=invariants)
+    ate, jate = _ate(th.vio, traj), _ate(jh.vio, traj)
+    print(f"soak ATE: port {ate:.5f} m, JAX {jate:.5f} m")
+    assert len(th.vio.trajectory) >= 67
+    assert len(th.vio._imu_ts) < 400  # the IMU buffer is trimmed
+    assert ate is not None and ate < 0.1, f"soak ATE {ate} (JAX {jate})"

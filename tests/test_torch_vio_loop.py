@@ -88,6 +88,22 @@ def run():
     return dict(jax=want, port=got, keys=keys, frames=frames)
 
 
+def assert_same_vio_window(got, want, what, tol_landmark=1e-8):
+    """A window after a frame of the loop against the JAX one: landmark
+    quality to TOL_QUALITY, the prior's H to TOL_MARG_H of its largest entry,
+    landmark positions to `tol_landmark`, the rest at
+    test_torch_estimator.py's tolerances."""
+    np.testing.assert_allclose([lm["quality"] for lm in got["landmarks"]],
+                               [lm["quality"] for lm in want["landmarks"]], rtol=0, atol=TOL_QUALITY, err_msg=what)
+    scale = np.abs(want["marg_H"]).max()
+    np.testing.assert_allclose(got["marg_H"], want["marg_H"], rtol=0, atol=TOL_MARG_H * scale, err_msg=what)
+    # the two quantities checked above taken from the JAX window
+    strip = lambda s: {**s, "landmarks": [{**lm, "quality": 0.0} for lm in s["landmarks"]],  # noqa: E731
+                       "marg_H": want["marg_H"]}
+    assert_same_window(strip(got), strip(want), what)
+    np.testing.assert_allclose(got["hp_W"], want["hp_W"], rtol=0, atol=tol_landmark, err_msg=what)
+
+
 @pytest.mark.parametrize("frame", range(N_FRAMES))
 def test_vio_loop_matches_jax_after_frame(run, frame):
     got, want = run["port"][frame], run["jax"][frame]
@@ -96,16 +112,7 @@ def test_vio_loop_matches_jax_after_frame(run, frame):
         (want["keyframe"], want["initialized"], want["degenerate"]), what
     for a, b in zip(got["lids"], want["lids"]):
         np.testing.assert_array_equal(a, b, err_msg=what)
-    np.testing.assert_allclose([lm["quality"] for lm in got["landmarks"]],
-                               [lm["quality"] for lm in want["landmarks"]], rtol=0, atol=TOL_QUALITY, err_msg=what)
-    scale = np.abs(want["marg_H"]).max()
-    np.testing.assert_allclose(got["marg_H"], want["marg_H"], rtol=0, atol=TOL_MARG_H * scale, err_msg=what)
-    # the rest at test_torch_estimator.py's tolerances, with the two
-    # quantities checked above taken from the JAX window
-    strip = lambda s: {**s, "landmarks": [{**lm, "quality": 0.0} for lm in s["landmarks"]],  # noqa: E731
-                       "marg_H": want["marg_H"]}
-    assert_same_window(strip(got), strip(want), what)
-    np.testing.assert_allclose(got["hp_W"], want["hp_W"], rtol=0, atol=1e-8, err_msg=what)
+    assert_same_vio_window(got, want, what)
 
 
 def test_vio_loop_exercises_association(run):
