@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the okvis_tpu_torch vision slice, back end, estimator, the
-per-frame VIO loop and the runtime (ThreadedVio) on one CUDA card and
-check them.
+per-frame VIO loop, the runtime (ThreadedVio) and its estimator modes on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,8 @@ check them.
    10 % depth of their nearest true landmark;
 5. profiles a few frames (device time by kernel, device busy share);
 6. holds each kernel to its plain torch version on the card, at the main
-   path's shapes: Harris raw bit for bit from 10 px inside the image and
-   the same suppressed pattern; Hamming exactly, masked and unmasked, at the
+   path's shapes: Harris raw bit for bit over the whole image and the same
+   suppressed pattern; Hamming exactly, masked and unmasked, at the
    stereo pair (400 x 400), the association batch (8, 400, 400) with B
    broadcast, a database shape (400 x 3200) and a ragged (397 x 1001), one
    launch a call; the CUDA assignment to the CPU one; and the last frame's
@@ -44,7 +44,7 @@ check them.
 11. runs the Estimator's add_states / optimize / apply_marginalization_strategy
    loop over 39 frames of the long-run scenario (ESTIMATOR_SCENARIO) at its
    default window (S = 9, L = 512, O = 2048, K = 8, 10 iterations) in
-   float32 on the card, for LM + Newton-Schulz (twice) and LM + Cholesky;
+   float32 on the card, LM + Newton-Schulz, twice;
    prints every frame's capacity tier, holds each run to the gates of
    ESTIMATOR_GATES (bounded window, the last 10 frames' errors, the final
    window against the port's float64 CPU run of the same variant) and the
@@ -80,7 +80,21 @@ check them.
    both kernels on the path and the rerun to bitwise equality; prints the
    `runtime_frames` and `runtime` lines (Timing stages, frame ms, optimize
    latencies, publishing ms a sample, syncs, busy share, the frame ms over
-   the vio phase's).
+   the vio phase's);
+14. runs the modes phase (MODES): the runtime phase's frames through the
+   port's ThreadedVio with scale-space detection (detection_octaves = 2)
+   and a detection mask, with per-state extrinsics from a camera-1
+   calibration 5.4 mm off, and camera 0 alone on tests/test_vision_e2e.py
+   :158's gentle-motion world (60 frames), each once profiled with its own
+   launch counts and once more over its first 20 frames for bitwise
+   equality, the per-state run checkpointed and restored; holds each to
+   MODES_GATES (the JAX tests' ATE bounds, the JAX package's float32 CPU
+   run of the same frames, JAX_MODES, the calibration error falling), both
+   kernels on every mode's path (Harris once an octave a frame), the
+   Harris kernel to its plain version at the three pyramid levels with the
+   mask over the whole image and the Hamming kernel at the mono
+   association batch; prints `modes_frames` and `modes` lines a mode and
+   a `modes_kernels` line.
 
 Prints the `kernels` JSON line (each kernel's `launches` from the runtime's
 first run, the other paths' in `launches_by_path`), and as its last line
@@ -91,6 +105,7 @@ ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import multiprocessing
 import re
@@ -156,15 +171,15 @@ ESTIMATOR_SCENARIO = dict(duration=4.0, traj_seed=3, motion_scale=0.6, n_landmar
                           radius=(3.0, 9.0), n_frames=39, seed=11, pixel_noise=0.6)
 # Gates per variant, written before the first card run: the last 10 frames'
 # newest-state errors (m, rad) and the final window's poses against the
-# port's float64 CPU run of the same variant (m, rad). LM + Cholesky takes
-# the reference gates (tests/test_estimator.py:103-104). LM + Newton-Schulz
+# port's float64 CPU run of the same variant (m, rad). LM + Newton-Schulz
 # takes about three times what the JAX package reaches in float32 on the CPU
-# (scripts/jax_float32_estimator.py: 0.0161 m, 0.0026 rad; LM + Cholesky
-# 0.0165 m, 0.0044 rad). Against float64: the port's float32 CPU runs end
-# within 0.009 m and 3.5e-3 rad of it.
+# (scripts/jax_float32_estimator.py: 0.0161 m, 0.0026 rad). Against
+# float64: the port's float32 CPU runs end within 0.009 m and 3.5e-3 rad of
+# it. (The LM + Cholesky variant, which the back-end phase still runs on
+# its window, left this phase to keep the script inside half its time
+# limit once the modes phase came.)
 ESTIMATOR_GATES = dict(
     optimize=dict(last10=(0.05, 1e-2), f64=(0.03, 1e-2)),
-    optimize_cholesky=dict(last10=(0.1, 2e-2), f64=(0.03, 1e-2)),
 )
 ESTIMATOR_PROFILE_FRAMES = (20, 25)  # frame ids [a, b) under torch.profiler
 
@@ -473,11 +488,9 @@ def check_kernels(images, fds):
     raw_k, sup_k = harris_suppressed_cuda(images, inb)
     raw_p, sup_p = detection.harris_suppressed_plain(images, inb)
     torch.cuda.synchronize()
-    # the two agree bit for bit from 10 px inside the image (csrc/harris_nms.cu)
-    inner = (slice(None), slice(10, H - 10), slice(10, W - 10))
-    a, b = raw_k[inner], raw_p[inner]
-    harris_err = float((a - b).abs().max())
-    if not torch.equal(a, b):
+    # the two agree bit for bit over the whole image (csrc/harris_nms.cu)
+    harris_err = float((raw_k - raw_p).abs().max())
+    if not torch.equal(raw_k, raw_p):
         raise SmokeError(f"Harris raw differs from the plain version: max |d| {harris_err}")
     if not torch.equal(torch.isfinite(sup_k), torch.isfinite(sup_p)):
         raise SmokeError("Harris suppressed pattern differs from the plain version")
@@ -731,7 +744,7 @@ def check_marginalize(window, window64, states):
     eqs = evaluate(cfg, imu, intr, problem._replace(states=states), states)
     marg = marginalize_system(cfg, eqs, *margs, 2.0 * eqs.cost)
     cfg64, imu64, intr64, problem64 = window64
-    states64 = type(states)(*(x.cpu().double() for x in states))
+    states64 = type(states)(*(None if x is None else x.cpu().double() for x in states))
     eqs64 = evaluate(cfg64, imu64, intr64, problem64._replace(states=states64), states64)
     marg64 = marginalize_system(cfg64, eqs64, *(torch.as_tensor(m) for m in (marg_dense, keep_dense, marg_lm)),
                                 2.0 * eqs64.cost)
@@ -909,7 +922,7 @@ def check_deterministic(cfg, imu, intr, problem, first_opt, sync_free) -> dict:
     states0, diag0 = first_opt
     same = dict(
         evaluate={name: torch.equal(a, b) for name, a, b in zip(e1._fields, e1, e2)},
-        optimize={name: torch.equal(a, b) for name, a, b in zip(states._fields, states, states0)},
+        optimize={name: torch.equal(a, b) for name, a, b in zip(states._fields, states, states0) if a is not None},
         accepted=torch.equal(diag.accepted, diag0.accepted),
         cost_history=torch.equal(diag.cost_history, diag0.cost_history),
     )
@@ -1059,17 +1072,16 @@ def check_estimator() -> dict:
     harris_suppressed_cuda.launches = 0
     hamming_matrix_cuda.launches = 0
     runs = {}
-    # The float64 CPU references run in two worker processes while the card
+    # The float64 CPU reference runs in a worker process while the card
     # repeats LM + Newton-Schulz (a run whose times are not reported); the
-    # timed card runs have the host to themselves.
+    # timed card run has the host to itself.
     runs["optimize"] = run_estimator("optimize", "cuda", torch.float32, frames, init, profile=True)
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(max_workers=len(ESTIMATOR_GATES), mp_context=multiprocessing.get_context("spawn")) as pool:
         refs = {v: pool.submit(estimator_reference, v) for v in ESTIMATOR_GATES}
         rerun = estimator_window(run_estimator("optimize", "cuda", torch.float32, frames, init)[0])
         refs = {v: f.result() for v, f in refs.items()}
     print(f"estimator_reference_seconds {time.perf_counter() - t0:.2f}")
-    runs["optimize_cholesky"] = run_estimator("optimize_cholesky", "cuda", torch.float32, frames, init, profile=True)
     for variant, gates in ESTIMATOR_GATES.items():
         est, rows, summary = runs[variant]
         print("estimator_frames", json.dumps(dict(variant=variant, frames=[
@@ -1107,10 +1119,11 @@ def check_estimator() -> dict:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=1)
 def vio_scene():
     """The vio phase's world (datasets.synthetic.vio_scenario: the scenario
     of tests/test_vision_e2e.py::test_full_vision_tracking), rendered on the
-    CPU."""
+    CPU once a process (every phase reads it, none writes it)."""
     from okvis_tpu_torch.cameras.ncamera import NCameraSystem
     from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, vio_scenario
 
@@ -1466,11 +1479,11 @@ def runtime_params():
     return p
 
 
-def runtime_checkpoint(vio, directory: str) -> dict:
-    """save_checkpoint, then load_checkpoint into a fresh ThreadedVio on the
-    same device: whether each field of the restored window
-    (convert.estimator_to_numpy) equals the saved one exactly, and where
-    the restored marginal prior lives."""
+def runtime_checkpoint(vio, directory: str, params=None) -> dict:
+    """save_checkpoint, then load_checkpoint into a fresh ThreadedVio (of
+    `params`, else runtime_params) on the same device and rig: whether each
+    field of the restored window (convert.estimator_to_numpy) equals the
+    saved one exactly, and where the restored marginal prior lives."""
     import torch
 
     from okvis_tpu_torch import convert
@@ -1478,7 +1491,8 @@ def runtime_checkpoint(vio, directory: str) -> dict:
 
     path = f"{directory}/vio.ckpt"
     vio.save_checkpoint(path)
-    fresh = ThreadedVio(runtime_params(), rig=vio.rig, blocking=True, dtype=torch.float32, device=vio.device)
+    fresh = ThreadedVio(params or runtime_params(), rig=vio.rig, blocking=True, dtype=torch.float32,
+                        device=vio.device)
     try:
         fresh.load_checkpoint(path)
         a, b = convert.estimator_to_numpy(vio.estimator), convert.estimator_to_numpy(fresh.estimator)
@@ -1748,6 +1762,416 @@ def check_runtime(vio: dict, dev: str = "cuda") -> dict:
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the modes phase: scale-space + masked detection, per-state extrinsics and
+# the monocular rig, each through the port's ThreadedVio
+# ---------------------------------------------------------------------------
+
+# pyramid: the runtime phase's frames with detection_octaves = 2 and a
+# detection mask a camera that blanks the left 64 columns and the bottom 48
+# rows (a vehicle body in view); per_state: the same frames, both relative
+# extrinsics sigmas nonzero (tests/test_pipeline.py:455's values), the
+# estimator's camera-1 translation MODES_OFFSET off the truth that rendered
+# the frames (tests/test_estimator.py:204); mono: camera 0 alone on
+# tests/test_vision_e2e.py:158's gentle-motion world (trajectory seed 41,
+# 300 landmarks at 4-9 m), MODES_MONO_FRAMES frames. VioParameters as
+# runtime_params (EuRoC defaults, 400 keypoints, threshold 40, the default
+# window), blocking mode, float32 on the card. Each mode runs again over its
+# first MODES_RERUN_FRAMES frames for the bitwise comparison; the per_state
+# run is checkpointed after RUNTIME_CHECKPOINT_AFTER frames.
+MODES = ("pyramid", "per_state", "mono")
+MODES_MONO_FRAMES = 60
+MODES_RERUN_FRAMES = 20
+MODES_PROFILE_FRAMES = (10, 15)
+MODES_MASK = dict(left=64, bottom=48)
+MODES_OFFSET = (0.004, -0.003, 0.002)
+MODES_PER_STATE_SIGMAS = dict(sigma_c_relative_translation=1e-4, sigma_c_relative_orientation=1e-5,
+                              sigma_absolute_translation=0.05, sigma_absolute_orientation=0.02)
+# The JAX package's ThreadedVio on the same frames on the CPU
+# (scripts/jax_modes.py; a CPU run, not a device metric)
+JAX_MODES = dict(float32=dict(
+    pyramid=dict(ate_m=0.022639131980574545, frames_tracked=20, landmarks=127, keyframes=7, initialized_at_frame=2),
+    per_state=dict(ate_m=0.022438408627563387, frames_tracked=20, landmarks=178, keyframes=1, initialized_at_frame=None,
+                   calibration_error_m=dict(before=0.005385164807134504, after=0.0038642948493361473)),
+    mono=dict(ate_m=0.29595536488286445, frames_tracked=60, landmarks=82, keyframes=10, initialized_at_frame=16),
+))
+# Gates: frames tracked (n - 3, the JAX end-to-end tests' floor), the JAX
+# tests' ATE bounds (tests/test_vision_e2e.py:71 for stereo, :201 for the
+# gentle mono) and the JAX float32 CPU run's ATE plus a margin, landmarks
+# within landmarks_rel of its count, for the stereo modes its first tracked
+# frame and its keyframes within keyframes_margin; per_state: the camera-1
+# calibration error falls. The margins were set, as the vio phase's, from
+# three readings of each mode: the JAX float32 CPU run (JAX_MODES), the
+# port's float32 CPU run (check_modes(dev="cpu")) and the card's. pyramid:
+# ATE 0.0226, 0.0210, 0.0145 m; 127, 124, 116 landmarks; 7, 6, 6 keyframes
+# (one keyframe decision goes the other way in float32 in the port, on
+# either device; in float64 the two packages agree, tests/test_torch_mono.py
+# :test_full_vision_multi_octave_detection). per_state: 0.0224, 0.0234,
+# 0.0239 m; 178, 188, 180 landmarks; 1 keyframe and no 2D-2D initialization
+# in all three (the gate inflation of online calibration). The mono run is
+# a lottery of discrete decisions (tests/test_vision_e2e.py:194) and is held
+# to bounds only.
+MODES_GATES = dict(
+    pyramid=dict(ate_m=0.15, ate_margin_m=0.003, landmarks_rel=0.1, keyframes_margin=1, same_decisions=True),
+    per_state=dict(ate_m=0.15, ate_margin_m=0.003, landmarks_rel=0.1, keyframes_margin=0, same_decisions=True),
+    mono=dict(ate_m=0.6, ate_margin_m=None, landmarks_rel=None, keyframes_margin=None, same_decisions=False),
+)
+
+
+def modes_mask():
+    """The pyramid mode's (480, 752) detection mask: True where detection
+    may fire."""
+    mask = np.ones((480, 752), bool)
+    mask[:, : MODES_MASK["left"]] = False
+    mask[-MODES_MASK["bottom"]:] = False
+    return mask
+
+
+def modes_rig(mode: str, dev: str):
+    """The rig the mode's ThreadedVio gets: the EuRoC stereo rig with
+    overlaps, camera 1's translation MODES_OFFSET off in per_state, camera 0
+    alone in mono."""
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+
+    specs, T_SC, intr = euroc_stereo_rig(device=dev)
+    r = T_SC.r.clone()
+    if mode == "per_state":
+        r[1] += torch.tensor(MODES_OFFSET, dtype=r.dtype, device=r.device)
+    n = 1 if mode == "mono" else 2
+    rig = NCameraSystem(specs=specs[:n], T_SC=kin.SE3(r=r[:n], q=T_SC.q[:n]), intrinsics=intr[:n])
+    rig.compute_overlaps()
+    return rig
+
+
+def modes_params(mode: str):
+    p = runtime_params()
+    if mode == "pyramid":
+        p.optimization.detection_octaves = 2
+    if mode == "per_state":
+        for k, v in MODES_PER_STATE_SIGMAS.items():
+            setattr(p.camera_params, k, v)
+    return p
+
+
+def modes_scenes() -> dict:
+    """The frames of each mode, rendered on the CPU: the vio scene (stereo)
+    and the gentle-motion mono scene."""
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import (
+        euroc_stereo_rig, gentle_mono_trajectory, make_landmarks, render_scenario)
+
+    stereo = vio_scene()
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    mono_rig = NCameraSystem(specs=specs[:1], T_SC=kin.SE3(r=T_SC.r[:1], q=T_SC.q[:1]), intrinsics=intr[:1])
+    traj = gentle_mono_trajectory(MODES_MONO_FRAMES)
+    mono = render_scenario(mono_rig, traj, make_landmarks(traj, 300, seed=42, radius=(4.0, 9.0)), MODES_MONO_FRAMES)
+    return dict(pyramid=stereo, per_state=stereo, mono=mono)
+
+
+def run_mode(mode: str, scene, dev: str = "cuda", n_frames=None, profile: bool = False, checkpoint_dir=None):
+    """One mode's frames through the port's ThreadedVio in blocking mode in
+    float32, fed as run_runtime feeds (the IMU up to 25 ms past a frame, the
+    images, wait_idle; timestamps rounded to the ns). Per frame: host ms
+    from the first add_image to wait_idle's return, syncstats, the kernels'
+    launches, the association-shape Hamming launches and shapes, the
+    keypoint-to-landmark ids. With `profile`, MODES_PROFILE_FRAMES run under
+    torch.profiler; with `checkpoint_dir`, a checkpoint round trip after
+    RUNTIME_CHECKPOINT_AFTER frames. Returns a namespace of the run."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from okvis_tpu_torch.frontend import kernels
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+    from okvis_tpu_torch.pipeline import ThreadedVio
+    from okvis_tpu_torch.utils import syncstats
+    from okvis_tpu_torch.utils.ids import IdProvider
+    from okvis_tpu_torch.utils.time import ns_from_sec
+
+    rig = modes_rig(mode, dev)
+    IdProvider.reset()
+    vio = ThreadedVio(modes_params(mode), rig=rig, blocking=True, dtype=torch.float32, device=dev)
+    if mode == "pyramid":
+        vio.frontend.cfg.detection_masks = (modes_mask(),) * rig.num_cameras
+    out = SimpleNamespace(vio=vio, rows=[], mfs=[], checkpoint=None, profile=None, assoc_args=None,
+                          assoc_shapes=set(), calibration=None)
+    assoc = vio.frontend.data_association_and_initialization
+
+    def record(est, T_WS, mf, sb_prop=None):
+        out.mfs.append(mf)
+        return assoc(est, T_WS, mf, sb_prop=sb_prop)
+
+    vio.frontend.data_association_and_initialization = record
+    shapes = []
+    orig_mdm = kernels.masked_distance_matrix
+
+    def mdm(*args):
+        res = orig_mdm(*args)
+        shapes.append(res.dim() == 3)  # the association round's (P·C, K, K) batch
+        if res.dim() == 3:
+            out.assoc_args = args
+            out.assoc_shapes.add(tuple(res.shape))
+        return res
+
+    kernels.masked_distance_matrix = mdm
+    traj = scene.traj
+    ts_ns = [int(ns_from_sec(t)) for t in traj.ts]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    a, b = MODES_PROFILE_FRAMES
+    imu_i, prof = 0, None
+    frames = list(zip(scene.times, scene.images))[:n_frames]
+    try:
+        for fi, (t, images) in enumerate(frames):
+            if profile and fi == a:
+                sync()
+                prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            syncstats.reset()
+            n_shapes, harris0, ham0 = len(shapes), harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
+            t_ns = int(ns_from_sec(t))
+            while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
+                vio.add_imu_measurement(ts_ns[imu_i], traj.gyro[imu_i], traj.acc[imu_i])
+                imu_i += 1
+            t0 = time.perf_counter()
+            for c, image in enumerate(images):
+                vio.add_image(t_ns, c, image)
+            vio.wait_idle(timeout=120)
+            frame_ms = 1e3 * (time.perf_counter() - t0)
+            state = vio.trajectory[-1] if vio.trajectory and vio.trajectory[-1].timestamp_ns == t_ns else None
+            i = int(round(t * 200))
+            out.rows.append(dict(
+                frame=fi, frame_ms=frame_ms, syncs=syncstats.snapshot(), profiled=prof is not None,
+                tracked=state is not None, keyframe=bool(state is not None and state.is_keyframe),
+                initialized=vio.frontend.is_initialized, harris=harris_suppressed_cuda.launches - harris0,
+                hamming=hamming_matrix_cuda.launches - ham0, hamming_association=sum(shapes[n_shapes:]),
+                landmarks=vio.estimator.num_landmarks(),
+                position=None if state is None else float(np.linalg.norm(state.T_WS.r.numpy() - traj.r[i])),
+                lids=[f.landmark_ids.copy() for f in out.mfs[-1].frames] if state is not None else None))
+            if checkpoint_dir is not None and fi + 1 == RUNTIME_CHECKPOINT_AFTER:
+                out.checkpoint = runtime_checkpoint(vio, checkpoint_dir, modes_params(mode))
+            if prof is not None and fi == b - 1:
+                wall_ms = 1e3 * (time.perf_counter() - t_prof)
+                prof.__exit__(None, None, None)
+                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
+                out.profile = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
+                                   device_busy_share=kernel_ms / wall_ms,
+                                   launches_per_frame=sum(e.count for e in kern) / (b - a))
+                prof = None
+        if mode == "per_state":
+            est = vio.estimator
+            true_r1 = modes_rig("pyramid", "cpu").T_SC.r[1].numpy()
+            out.calibration = dict(
+                before=float(np.linalg.norm(MODES_OFFSET)),
+                after=float(np.linalg.norm(est.r_SC_t[est._last_state().slot, 1] - true_r1)),
+                dense_dim=est.cfg.dense_dim)
+    finally:
+        kernels.masked_distance_matrix = orig_mdm
+        vio.shutdown()
+    out.frames_fed, out.frames_processed = len(frames), vio._frames_processed
+    return out
+
+
+def check_modes(dev: str = "cuda") -> dict:
+    """The modes phase: each of MODES through the port's ThreadedVio on the
+    card with its launch counters zeroed before and read after, then its
+    first MODES_RERUN_FRAMES frames again for bitwise equality; the gates of
+    MODES_GATES; both hand kernels on each mode's path; the Harris kernel
+    held to its plain version at every pyramid level's shape with the mask
+    over the whole image, and the Hamming kernel at the mono association
+    shape. Prints a `modes_frames` and a `modes` line a mode and a
+    `modes_kernels` line; returns the launches and kernel entries for the
+    `kernels` line."""
+    import tempfile
+
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    t0 = time.perf_counter()
+    scenes = modes_scenes()
+    print(f"modes_scene_seconds {time.perf_counter() - t0:.2f}")
+    results, runs, fails = {}, {}, []
+    for mode in MODES:
+        scene = scenes[mode]
+        t0 = time.perf_counter()
+        harris_suppressed_cuda.launches = 0
+        hamming_matrix_cuda.launches = 0
+        with tempfile.TemporaryDirectory() as ckpt:
+            run1 = run_mode(mode, scene, dev, profile=dev == "cuda",
+                            checkpoint_dir=ckpt if mode == "per_state" else None)
+        launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+        run2 = run_mode(mode, scene, dev, n_frames=MODES_RERUN_FRAMES)
+        result = runtime_result(run1, scene.traj)
+        same = mode_rerun_equal(run1, run2)
+        runs[mode] = run1
+        timed = [r for r in run1.rows[2:] if not r["profiled"]]
+        frame_ms = [r["frame_ms"] for r in timed]
+        counters = sorted({k for r in timed for k in r["syncs"]})
+        line = dict(
+            mode=mode, frames=len(run1.rows), cameras=run1.vio.rig.num_cameras, keypoints=VIO_KEYPOINTS,
+            dtype="float32", dense_dim=run1.vio.estimator.cfg.dense_dim, mode_settings=mode_settings(mode),
+            frame_ms=dict(median=statistics.median(frame_ms), max=max(frame_ms), timed_frames=len(frame_ms)),
+            syncs_per_frame={k: sum(r["syncs"].get(k, 0) for r in timed) / len(timed) for k in counters},
+            profile=run1.profile, launches=launches,
+            launches_per_frame={k: v / len(run1.rows) for k, v in launches.items()},
+            harris_per_frame=sorted({r["harris"] for r in run1.rows}),
+            hamming_association_per_frame=sum(r["hamming_association"] for r in run1.rows[1:]) / (len(run1.rows) - 1),
+            association_shapes=sorted(run1.assoc_shapes), calibration_error_m=run1.calibration,
+            checkpoint=run1.checkpoint, frames_fed=run1.frames_fed, frames_processed=run1.frames_processed,
+            bitwise_equal_rerun=same, position_error_m=[r["position"] for r in run1.rows],
+            jax_cpu_reference=JAX_MODES["float32"][mode], gates=MODES_GATES[mode],
+            seconds=time.perf_counter() - t0)
+        line.update({k: v for k, v in result.items() if k != "arrays"})
+        print("modes_frames", json.dumps(dict(mode=mode, frames=[
+            {k: r[k] for k in ("frame", "tracked", "keyframe", "initialized", "landmarks", "harris", "hamming",
+                               "hamming_association", "position", "frame_ms", "profiled")} for r in run1.rows])))
+        print("modes", json.dumps(line))
+        results[mode] = line
+        fails += [f"{mode}: {f}" for f in mode_fails(mode, line, run1)]
+    kern = check_mode_kernels(runs)
+    if kern.pop("fails"):
+        fails.append(f"kernels against their plain versions: {kern}")
+    print("modes_kernels", json.dumps(kern))
+    if fails:
+        raise SmokeError("modes phase: " + "; ".join(fails))
+    return dict(launches={m: r["launches"] for m, r in results.items()}, kernels=kern)
+
+
+def mode_settings(mode: str) -> dict:
+    if mode == "pyramid":
+        return dict(detection_octaves=2, mask=MODES_MASK)
+    if mode == "per_state":
+        return dict(MODES_PER_STATE_SIGMAS, camera1_offset_m=MODES_OFFSET)
+    return dict(cameras=1, scene="tests/test_vision_e2e.py:158 (seed 41, 300 landmarks at 4-9 m)")
+
+
+def mode_rerun_equal(run1, run2) -> dict:
+    """The rerun of the first MODES_RERUN_FRAMES frames against the first
+    run: every frame's keypoint-to-landmark ids and the trajectory, and,
+    where the first run stopped there too, the landmark table."""
+    n = len(run2.rows)
+    lids = [(a["lids"], b["lids"]) for a, b in zip(run1.rows[:n], run2.rows)]
+    pose = lambda states: np.stack([np.concatenate([s.T_WS.r.numpy(), s.T_WS.q.numpy()]) for s in states])  # noqa: E731
+    t2 = pose(run2.vio.trajectory)
+    same = dict(
+        keypoint_landmarks=all((a is None) == (b is None) and (a is None or all(map(np.array_equal, a, b)))
+                               for a, b in lids),
+        trajectory=bool(np.array_equal(pose(run1.vio.trajectory[: len(t2)]), t2)))
+    if len(run1.rows) == n:
+        est1, est2 = run1.vio.estimator, run2.vio.estimator
+        same["landmarks"] = sorted(est1.landmarks) == sorted(est2.landmarks) and bool(
+            np.array_equal(est1.hp_W, est2.hp_W))
+    return same
+
+
+def mode_fails(mode: str, line: dict, run) -> list:
+    gates, ref = MODES_GATES[mode], JAX_MODES["float32"][mode]
+    fails = []
+    n = line["frames"]
+    if run.frames_processed != run.frames_fed:
+        fails.append(f"{run.frames_processed} of {run.frames_fed} frames processed")
+    if line["frames_tracked"] < n - 3:
+        fails.append(f"{line['frames_tracked']} of {n} frames tracked")
+    ate = line["ate_m"]
+    if ate is None or ate >= gates["ate_m"]:
+        fails.append(f"ATE {ate} (bound {gates['ate_m']})")
+    if gates["ate_margin_m"] is not None and ate is not None and ate > ref["ate_m"] + gates["ate_margin_m"]:
+        fails.append(f"ATE {ate} against the JAX float32 CPU run's {ref['ate_m']}")
+    if gates["landmarks_rel"] is not None and \
+            abs(line["landmarks"] - ref["landmarks"]) > gates["landmarks_rel"] * ref["landmarks"]:
+        fails.append(f"{line['landmarks']} landmarks (JAX float32 CPU run: {ref['landmarks']})")
+    if gates["same_decisions"]:
+        if abs(line["keyframes"] - ref["keyframes"]) > gates["keyframes_margin"]:
+            fails.append(f"{line['keyframes']} keyframes (JAX float32 CPU run: {ref['keyframes']})")
+        if line["initialized_at_frame"] != ref["initialized_at_frame"]:
+            fails.append(f"initialized at frame {line['initialized_at_frame']} "
+                         f"(JAX float32 CPU run: {ref['initialized_at_frame']})")
+    if not all(line["bitwise_equal_rerun"].values()):
+        fails.append(f"the rerun differs: {line['bitwise_equal_rerun']}")
+    if min(line["launches"].values()) == 0:
+        fails.append(f"a kernel of the path was never launched: {line['launches']}")
+    octaves = 3 if mode == "pyramid" else 1
+    if line["harris_per_frame"] != [octaves]:
+        fails.append(f"Harris launches a frame {line['harris_per_frame']} (want {octaves})")
+    if min(r["hamming_association"] for r in run.rows[1:]) < 1 and mode != "mono":
+        fails.append("a frame after the first made no association-shape Hamming launch")
+    if mode == "mono" and not any(s[0] >= 1 for s in line["association_shapes"]):
+        fails.append(f"no association batch: {line['association_shapes']}")
+    if mode == "per_state":
+        cal = line["calibration_error_m"]
+        if not cal["after"] < cal["before"] or cal["dense_dim"] != 255:
+            fails.append(f"calibration {cal}")
+        ck = line["checkpoint"]
+        if ck is None or not all(ck["same"].values()) or ck["prior_device"] == "host":
+            fails.append(f"checkpoint round trip: {ck}")
+    return fails
+
+
+def check_mode_kernels(runs) -> dict:
+    """The Harris kernel against its plain version at every pyramid level of
+    the pyramid run's last frame, with the mode's mask subsampled and the
+    level's border, over the whole image (raw bit for bit, the same
+    suppressed values), timed with its plain version and bound; the Hamming
+    kernel against its plain version at the mono run's last association
+    batch, timed beside torch.bmm of the ±1 form. These launches come after
+    the modes' counts were read."""
+    import torch
+
+    from okvis_tpu_torch.frontend import detection
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming import masked_distance_matrix_plain, unpack_to_pm1
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    images = torch.stack([torch.as_tensor(im) for im in vio_scene().images[-1]]).to("cuda", torch.float32)
+    mask = torch.from_numpy(modes_mask()).to("cuda").expand(images.shape[0], 480, 752)
+    octaves, fails = [], False
+    level = images.contiguous()
+    for o in range(3):
+        if o:
+            level = detection._downsample2(level).contiguous()
+            mask = mask[:, ::2, ::2]
+        C, H, W = level.shape
+        inb = (detection.border_mask(H, W, max(4, 20 >> o), level.device) & mask).to(torch.float32).contiguous()
+        raw_k, sup_k = harris_suppressed_cuda(level, inb)
+        raw_p, sup_p = detection.harris_suppressed_plain(level, inb)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(sup_p)
+        equal = (torch.equal(raw_k, raw_p) and torch.equal(torch.isfinite(sup_k), fin)
+                 and torch.equal(sup_k[fin], sup_p[fin]))
+        fails |= not equal
+        px = C * H * W
+        bound_ms, bound_by = bound(16 * px, {c: n * px for c, n in HARRIS_OPS_PER_PIXEL.items()})
+        octaves.append(dict(
+            shape=[C, H, W], border=max(4, 20 >> o), equal_whole_image=equal,
+            max_abs_err=float((raw_k - raw_p).abs().max()), selected=int(fin.sum()),
+            ms=device_ms(lambda: harris_suppressed_cuda(level, inb)),
+            plain_ms=device_ms(lambda: detection.harris_suppressed_plain(level, inb)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            launches_per_frame_pyramid=1))
+    args = runs["mono"].assoc_args
+    dk = hamming_matrix_cuda(*args)
+    dp = masked_distance_matrix_plain(*args)
+    torch.cuda.synchronize()
+    err = int((dk - dp).abs().max())
+    fails |= bool(err) or not torch.equal(dk, dp)
+    g, na, nb = dk.shape
+    n_bytes = sum(x.numel() * x.element_size() for x in args if x is not None) + g * na * nb * 4
+    bound_ms, bound_by = bound(n_bytes, *({c: n * g * na * nb for c, n in r.items()} for r in HAMMING_ROUTES))
+    va, vb = (unpack_to_pm1(x.reshape(-1, 16)).reshape(x.shape[0], -1, 512) for x in args[:2])
+    mono = dict(shape=[g, na, nb], max_abs_err=err, ms=device_ms(lambda: hamming_matrix_cuda(*args)),
+                plain_ms=device_ms(lambda: masked_distance_matrix_plain(*args)),
+                library_ms=device_ms(lambda: torch.bmm(va, vb.expand(g, -1, -1).transpose(1, 2))),
+                bound_ms=bound_ms, bound_by=bound_by,
+                launches_per_frame=sum(r["hamming"] for r in runs["mono"].rows) / len(runs["mono"].rows))
+    return dict(harris_octaves=octaves, hamming_mono_association=mono, fails=fails)
+
+
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
     compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
@@ -1839,13 +2263,19 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime = check_runtime(vio)
     print(f"runtime_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    modes = check_modes()
+    print(f"modes_seconds {time.perf_counter() - t0:.2f}")
     # `launches` is the runtime's (the main path, through ThreadedVio); the
     # other paths' counts stay beside it
     for k, name in zip(kernels, ("harris_nms", "hamming")):
         k["launches_by_path"] = dict(vision=k["launches"], estimator=est_launches[name], vio=vio["launches"][name],
-                                     runtime=runtime["launches"][name])
+                                     runtime=runtime["launches"][name],
+                                     **{m: modes["launches"][m][name] for m in MODES})
         k["launches"] = runtime["launches"][name]
+    kernels[0]["octave_shapes"] = modes["kernels"]["harris_octaves"]
     kernels[1]["association"] = vio["association"]
+    kernels[1]["mono_association"] = modes["kernels"]["hamming_mono_association"]
     print(f"smoke_seconds {time.perf_counter() - t_start:.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

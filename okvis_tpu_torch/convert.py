@@ -24,7 +24,7 @@ from .frontend.frontend import FrontendConfig
 from .imu.preintegration import ImuParams, PreintegratedImu
 from .kinematics import SE3
 from .solver.structure import (
-    BaProblem, ImuLinks, MargPrior, Observations, PosePriors, SbPriors, WindowConfig, WindowStates)
+    BaProblem, ExtLinks, ImuLinks, MargPrior, Observations, PosePriors, SbPriors, WindowConfig, WindowStates)
 
 
 def rig_from_numpy(
@@ -132,8 +132,7 @@ def _camera_spec(spec) -> CameraSpec:
 
 def window_config_from_dict(values: dict) -> WindowConfig:
     """WindowConfig from plain values (e.g. dataclasses.asdict of the JAX
-    package's WindowConfig); an unknown key raises, and so does
-    extrinsics_per_state=True (not ported)."""
+    package's WindowConfig); an unknown key raises."""
     _check_fields(WindowConfig, values, "window_config_from_dict")
     values = dict(values)
     values["camera_specs"] = tuple(_camera_spec(s) for s in values.get("camera_specs", ()))
@@ -155,7 +154,7 @@ def imu_params_from_numpy(values, device=None, dtype: torch.dtype = torch.float6
 # the BaProblem tree: which field of which NamedTuple is itself a NamedTuple
 _SUBTREES = {
     BaProblem: dict(states=WindowStates, obs=Observations, imu_links=ImuLinks,
-                    pose_priors=PosePriors, sb_priors=SbPriors, marg=MargPrior),
+                    pose_priors=PosePriors, sb_priors=SbPriors, marg=MargPrior, ext_links=ExtLinks),
     ImuLinks: dict(pre=PreintegratedImu),
 }
 
@@ -167,6 +166,9 @@ def _tree_from_numpy(cls, values, device, dtype):
         raise NotImplementedError(f"problem_from_numpy: {cls.__name__} fields {unported} are not ported")
     out = {}
     for name in cls._fields:
+        if fields.get(name) is None and name in cls._field_defaults:
+            out[name] = None  # a mode's field the problem does not hold
+            continue
         sub = _SUBTREES.get(cls, {}).get(name)
         if sub is not None:
             out[name] = _tree_from_numpy(sub, fields[name], device, dtype)
@@ -181,14 +183,15 @@ def problem_from_numpy(values, device=None, dtype: torch.dtype = torch.float64) 
     BaProblem's field names: the JAX package's BaProblem with numpy leaves
     (``jax.tree_util.tree_map(np.asarray, problem)``) or problem_to_numpy's
     output. Float arrays take `dtype`; int32 indices and bool masks keep
-    theirs. Fields of modes the port does not hold (per-state extrinsics)
-    must be None."""
+    theirs. A mode's optional fields (per-state extrinsics) may be None."""
     return _tree_from_numpy(BaProblem, values, resolve_device(device), dtype)
 
 
 def problem_to_numpy(problem: BaProblem) -> dict:
     """The inverse of problem_from_numpy: nested dicts of numpy arrays."""
     def conv(node):
+        if node is None:
+            return None
         if isinstance(node, torch.Tensor):
             return node.detach().cpu().numpy()
         return {k: conv(v) for k, v in node._asdict().items()}
@@ -198,16 +201,16 @@ def problem_to_numpy(problem: BaProblem) -> dict:
 
 # the estimator's float64 tables: slot-indexed variables, FEJ points, prior
 _ESTIMATOR_ARRAYS = ("r_WS", "q_WS", "sb", "hp_W", "r_SC", "q_SC", "fej_r_WS", "fej_q_WS", "fej_sb", "fej_r_SC",
-                     "fej_q_SC", "marg_H", "marg_b0")
+                     "fej_q_SC", "marg_H", "marg_b0", "r_SC_t", "q_SC_t", "fej_r_SC_t", "fej_q_SC_t")
 
 
 def estimator_to_numpy(est) -> dict:
     """The host state of an Estimator of either package as plain values and
     numpy arrays: the slot tables and FEJ points, the marginal prior (read
     back if it is on a device), the state, landmark, observation, IMU-link
-    and prior records, the free-slot lists, and the window sizes. The
-    fields are the JAX package's checkpoint fields less the per-state
-    extrinsics ones. A deferred propagation is committed first."""
+    and prior records, the per-state extrinsics tables and drift links, the
+    free-slot lists, and the window sizes: the JAX package's checkpoint
+    fields. A deferred propagation is committed first."""
     est.resolve_pending_prop()
     rec = dataclasses.asdict
     return dict(
@@ -225,6 +228,9 @@ def estimator_to_numpy(est) -> dict:
                         acc=np.array(l.acc, np.float64), t0=float(l.t0), t1=float(l.t1)) for l in est.imu_links],
         pose_priors=[{k: (v if k == "pose_id" else _host(v)) for k, v in pr.items()} for pr in est.pose_priors],
         sb_priors=[{k: (v if k == "pose_id" else _host(v)) for k, v in pr.items()} for pr in est.sb_priors],
+        ext_links=[dict(id_a=int(l["id_a"]), id_b=int(l["id_b"]), trans_var=float(l["trans_var"]),
+                        rot_var=float(l["rot_var"])) for l in est.ext_links],
+        fej_ext_t_frozen=np.array(est.fej_ext_t_frozen, bool),
         **{k: _host(getattr(est, k)) for k in _ESTIMATOR_ARRAYS},
         marg_c0=float(_host(est.marg_c0)),
         marg_valid=bool(est.marg_valid),
@@ -276,5 +282,7 @@ def load_estimator_state(est: Estimator, values: dict) -> None:
     est.marg_c0 = float(values["marg_c0"])
     est.marg_valid = bool(values["marg_valid"])
     est.fej_ext_frozen = bool(values["fej_ext_frozen"])
+    est.ext_links = [dict(l) for l in values["ext_links"]]
+    est.fej_ext_t_frozen = np.array(values["fej_ext_t_frozen"], bool)
     est._rebuild_obs_count()
     est._obs_cols.rebuild(est.observations, est.states, est.landmarks)

@@ -26,9 +26,10 @@
 // x 64, 64 x 96) halve the blocks an SM holds and were slower on the card;
 // smaller ones (32 x 32, 64 x 32) recompute more halo. Stages, with a block
 // barrier after each:
-//   A. image tile + 1 + R + NR halo -> shared memory (reads clamped at the
-//      image edge); warps on rows, lanes on columns, every load issued before
-//      the first store;
+//   A. image tile + 1 + R + NR halo -> shared memory (the row and column
+//      next to the image read wrapped, as the plain version's roll, those
+//      further out clamped); warps on rows, lanes on columns, every load
+//      issued before the first store;
 //   B. a thread walks a column segment of 18 rows: Scharr from a 3 x 3 window
 //      slid down the column, the three products, and the vertical blur as 33
 //      running sums in registers (no product leaves the thread). The thread
@@ -56,11 +57,20 @@
 // it is rounded: each blur output still sums taps 0 .. 2R left to right, a
 // row difference reused by three products is the same rounded value, and the
 // gradients' /32 is a multiply by 2^-5, which rounds to the same float.
-// Boundaries: the plain version rolls the image circularly for Scharr and
-// pads with edge values for the blur, the kernel clamps its reads; the two
-// agree from 1 + R + NR = 10 px inside the image (the detection border is
-// 20 px). Outside the image the window max sees -inf. Ties keep >=, so equal
-// maxima on a plateau all survive, as in the Pallas kernel.
+// Boundaries, as the plain version (the JAX package's XLA path): Scharr
+// rolls the image circularly, so the row and column next to the image are
+// loaded wrapped; the blur pads the products with their edge values, so a
+// product outside the image is the nearest edge product: a stage-B thread
+// whose column lies outside reads the image at the clamped column, and a
+// block at the image's top or bottom walks only its v rows inside the
+// image, laid out so that a segment starts at row 0 or ends at row H - 1
+// and the edge rows' products replace the R outside at fixed places of the
+// walk (any other layout tests every row, kEdgeAny). The two agree bit for
+// bit over the whole image, which the pyramid's octaves need: their
+// selection borders come as close as 5 px to the edge. This costs about
+// 0.6 us at (2, 480, 752) against the edge-blind kernel (PERF.md). Outside
+// the image the window max sees -inf. Ties keep >=, so equal maxima on a
+// plateau all survive, as in the Pallas kernel.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstring>
@@ -154,14 +164,47 @@ __device__ __forceinline__ void store4(float* p, const float (&x)[N]) {
   }
 }
 
+// The three structure products of the 3x3 neighbourhood at `im` (its
+// top-left), rounded as products_vertical_blur rounds them.
+template <int IW>
+__device__ __forceinline__ void scharr_products(const float* im, float& pxx, float& pyy, float& pxy) {
+  const float l0 = im[0], m0 = im[1], r0 = im[2], l1 = im[IW], r1 = im[IW + 2];
+  const float l2 = im[2 * IW], m2 = im[2 * IW + 1], r2 = im[2 * IW + 2];
+  const float gx = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(3.f, __fsub_rn(r2, l2)), __fmul_rn(10.f, __fsub_rn(r1, l1))),
+                __fmul_rn(3.f, __fsub_rn(r0, l0))),
+      0.03125f);
+  const float gy = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(3.f, __fsub_rn(r2, r0)), __fmul_rn(10.f, __fsub_rn(m2, m0))),
+                __fmul_rn(3.f, __fsub_rn(l2, l0))),
+      0.03125f);
+  pxx = __fmul_rn(gx, gx), pyy = __fmul_rn(gy, gy), pxy = __fmul_rn(gx, gy);
+}
+
 // Scharr gradients, their products and the vertical blur of one column
 // segment: N blurred rows from N + 2R product rows, all in registers. `im`
 // is the image at the top-left of the first product's 3x3 neighbourhood, `v`
 // the first output of the xx plane. The gradients are the plain version's
 // expressions; a row's difference r - l and its 3(r - l) serve the three
-// products that read the row, computed once with the same roundings.
-template <int R, int N, int IW, int VS, int VP>
-__device__ __forceinline__ void products_vertical_blur(const float* im, float* v, const Taps<R>& taps) {
+// products that read the row, computed once with the same roundings. With
+// The blur's edge padding (a product row outside the image takes the
+// nearest edge row's product): kEdgeFixed for a segment that starts at image
+// row 0 (`top` set: its first R product rows lie above) or ends at row H - 1
+// (`bot` set: its last R lie below), kEdgeAny for any segment, `top` and
+// `bot` then being the segment's first and last product rows inside.
+enum { kInside = 0, kEdgeFixed = 1, kEdgeAny = 2 };
+
+template <int R, int N, int IW, int VS, int VP, int EDGE>
+__device__ __forceinline__ void products_vertical_blur(const float* im, float* v, const Taps<R>& taps,
+                                                       int top, int bot) {
+  float txx = 0.f, tyy = 0.f, txy = 0.f, bxx = 0.f, byy = 0.f, bxy = 0.f;
+  if constexpr (EDGE == kEdgeAny) {
+    scharr_products<IW>(im + top * IW, txx, tyy, txy);
+    scharr_products<IW>(im + bot * IW, bxx, byy, bxy);
+  }
+  if constexpr (EDGE == kEdgeFixed) {
+    if (top) scharr_products<IW>(im + R * IW, txx, tyy, txy);
+  }
   float l0 = im[0], m0 = im[1], r0 = im[2];
   float l1 = im[IW], m1 = im[IW + 1], r1 = im[IW + 2];
   float e1 = __fsub_rn(r1, l1);
@@ -178,7 +221,19 @@ __device__ __forceinline__ void products_vertical_blur(const float* im, float* v
         __fadd_rn(__fadd_rn(__fmul_rn(3.f, __fsub_rn(r2, r0)), __fmul_rn(10.f, __fsub_rn(m2, m0))),
                   __fmul_rn(3.f, __fsub_rn(l2, l0))),
         0.03125f);
-    const float pxx = __fmul_rn(gx, gx), pyy = __fmul_rn(gy, gy), pxy = __fmul_rn(gx, gy);
+    float pxx = __fmul_rn(gx, gx), pyy = __fmul_rn(gy, gy), pxy = __fmul_rn(gx, gy);
+    if constexpr (EDGE == kEdgeAny) {
+      if (j < top) {
+        pxx = txx, pyy = tyy, pxy = txy;
+      } else if (j > bot) {
+        pxx = bxx, pyy = byy, pxy = bxy;
+      }
+    }
+    if constexpr (EDGE == kEdgeFixed) {
+      if (j < R && top) pxx = txx, pyy = tyy, pxy = txy;
+      if (j == N - 1 + R) bxx = pxx, byy = pyy, bxy = pxy;  // row H - 1 when `bot`
+      if (j >= N + R && bot) pxx = bxx, pyy = byy, pxy = bxy;
+    }
 #pragma unroll
     for (int o = 0; o < N; ++o) {
       const int t = j - o;  // this product is tap t of output o
@@ -242,6 +297,39 @@ __device__ __forceinline__ void window_max(const float (&x)[N + K], float (&out)
   for (int i = 0; i < N; ++i) out[i] = fmaxf(p[i], x[i + K]);
 }
 
+// A tile of the image with its halo into shared memory. Only the row and
+// column just outside the image are read wrapped (the roll that Scharr at
+// the edge sees); products further out are replaced by edge products or
+// read at the clamped column, so those rows and columns are clamped.
+template <class G>
+__device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0, int y0, int H, int W, int warp,
+                                          int lane) {
+  auto edge_wrap = [](int v, int n) { return v == -1 ? n - 1 : (v == n ? 0 : clampi(v, 0, n - 1)); };
+  constexpr int kIR = cdiv(G::IH, kWarps), kIC = cdiv(G::IW, 32);
+  const bool last_row = warp + (kIR - 1) * kWarps < G::IH, last_col = lane + 32 * (kIC - 1) < G::IW;
+  float a[kIR][kIC];
+  int col[kIC];
+#pragma unroll
+  for (int j = 0; j < kIC; ++j) col[j] = edge_wrap(x0 - G::kHalo + lane + 32 * j, W);
+#pragma unroll
+  for (int i = 0; i < kIR; ++i) {
+    const int row = edge_wrap(y0 - G::kHalo + warp + i * kWarps, H) * W;
+#pragma unroll
+    for (int j = 0; j < kIC; ++j) {
+      if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) a[i][j] = im[row + col[j]];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIR; ++i) {
+#pragma unroll
+    for (int j = 0; j < kIC; ++j) {
+      if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) {
+        s_img[(warp + i * kWarps) * G::IW + lane + 32 * j] = a[i][j];
+      }
+    }
+  }
+}
+
 template <int R, int NR>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
@@ -264,45 +352,52 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // A. image tile + halo, reads clamped at the edge. Warps on rows, lanes on
-  //    columns; clamps are computed once a row and once a column, and every
-  //    load of a thread is issued before its first store. Only the last row
-  //    and column of a thread's grid can fall outside the region.
-  {
-    constexpr int kIR = cdiv(G::IH, kWarps), kIC = cdiv(G::IW, 32);
-    const bool last_row = warp + (kIR - 1) * kWarps < G::IH, last_col = lane + 32 * (kIC - 1) < G::IW;
-    float a[kIR][kIC];
-    int col[kIC];
-#pragma unroll
-    for (int j = 0; j < kIC; ++j) col[j] = clampi(x0 - G::kHalo + lane + 32 * j, 0, W - 1);
-#pragma unroll
-    for (int i = 0; i < kIR; ++i) {
-      const int row = clampi(y0 - G::kHalo + warp + i * kWarps, 0, H - 1) * W;
-#pragma unroll
-      for (int j = 0; j < kIC; ++j) {
-        if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) a[i][j] = im[row + col[j]];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kIR; ++i) {
-#pragma unroll
-      for (int j = 0; j < kIC; ++j) {
-        if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) {
-          s_img[(warp + i * kWarps) * G::IW + lane + 32 * j] = a[i][j];
-        }
-      }
-    }
-  }
+  // A. image tile + halo (load_tile). Warps on rows, lanes on columns;
+  //    indices are computed once a row and once a column, and every load of
+  //    a thread is issued before its first store. Only the last row and
+  //    column of a thread's grid can fall outside the region.
+  load_tile<G>(im, s_img, x0, y0, H, W, warp, lane);
   __syncthreads();
 
   // B. products and vertical blur: a column segment a thread, lanes on
   //    columns. The thread also copies the mask of its column and rows (score
   //    rows are v rows) to shared memory, 0 outside the image (the window
   //    max's -inf padding): the loads are issued first and land while the
-  //    blur runs.
+  //    blur runs. A product column or row outside the image repeats the edge
+  //    one: the column by reading the image at the clamped column, the row
+  //    in the EDGE blocks, whose product rows reach past the image.
+  // The layout of the column walks. A block whose product rows stay inside
+  // the image walks segments of kVSeg v rows from its first v row; a block
+  // at the image's top or bottom walks only the v rows inside the image,
+  // [lo, hi), with its first segment starting at image row 0 (top) and its
+  // last ending at row H - 1 (bottom), so the edge's R product rows sit at
+  // fixed places of those segments (kEdgeFixed), and the rows outside get
+  // a zero mask; where that layout cannot tile the block, it walks as
+  // inside blocks do and every segment tests its rows (kEdgeAny).
+  constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
+  const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
+  const int lo = top_edge ? NR - y0 : 0, hi = bottom_edge ? H - y0 + NR : G::VH;
+  int edge = kInside;
+  if (top_edge || bottom_edge) {
+    bool fixed = lo >= 0 && hi <= G::VH && hi - lo >= G::kVSeg;
+    for (int seg = 0; seg < G::kVSegs && fixed; ++seg) {
+      const int a = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+      fixed = (!top_edge || a == lo || a >= lo + R) && (!bottom_edge || a + G::kVSeg == hi || a + G::kVSeg <= hi - R);
+    }
+    edge = fixed ? kEdgeFixed : kEdgeAny;
+    if (fixed) {  // the mask of the v rows no segment walks: outside the image
+      for (int i = tid; i < (lo + G::VH - hi) * G::SS; i += kThreads) {
+        const int r = i / G::SS;
+        s_mask[(r < lo ? r : hi + r - lo) * G::SS + i % G::SS] = 0.f;
+      }
+    }
+  }
   for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
     const int px = task % G::PW, seg = task / G::PW;
-    const int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
+    int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
+    if (edge == kEdgeFixed) {
+      vy0 = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+    }
     const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
     const bool mask_col = px < G::SW && gx >= 0 && gx < W;
     float mask[G::kVSeg];
@@ -311,8 +406,18 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
       const bool in = mask_col && gy0 + k >= 0 && gy0 + k < H;
       mask[k] = in ? valid[(gy0 + k) * W + gx] : 0.f;
     }
-    products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP>(
-        s_img + vy0 * G::IW + px, s_v + vy0 * G::VS + px, taps);
+    const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
+    const float* src = s_img + vy0 * G::IW + px + (clampi(pcol, 0, W - 1) - pcol);
+    float* dst = s_v + vy0 * G::VS + px;
+    if (edge == kInside) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
+    } else if (edge == kEdgeFixed) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeFixed>(
+          src, dst, taps, top_edge && vy0 == lo, bottom_edge && vy0 + G::kVSeg == hi);
+    } else {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
+          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
+    }
     if (px < G::SW) {
 #pragma unroll
       for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];

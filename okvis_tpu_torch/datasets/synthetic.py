@@ -566,8 +566,8 @@ def landmarks_of(landmarks: np.ndarray, idx: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass
 class VioScenario:
-    """Rendered stereo frames with the IMU stream that drives a per-frame
-    VIO loop (numpy only)."""
+    """Rendered frames with the IMU stream that drives a per-frame VIO loop
+    (numpy only)."""
 
     traj: SyntheticImu
     landmarks: np.ndarray
@@ -578,11 +578,28 @@ class VioScenario:
 def vio_scenario(rig, n_frames: int = 20, frame_dt: float = 0.1) -> VioScenario:
     """tests/test_vision_e2e.py::test_full_vision_tracking's world:
     simulate_trajectory(duration=2.0, seed=31, motion_scale=0.25), 260
-    landmarks at 4-8 m (seed 32), frames every `frame_dt` from t = 0,
-    rendered by render_world_image on the CPU in float64 at the true poses
-    of `rig`'s cameras (any device: the rig is read back to the CPU)."""
+    landmarks at 4-8 m (seed 32), rendered by render_scenario."""
     traj = simulate_trajectory(duration=max(2.0, n_frames * frame_dt), seed=31, motion_scale=0.25)
     lms = make_landmarks(traj, 260, seed=32, radius=(4.0, 8.0))
+    return render_scenario(rig, traj, lms, n_frames, frame_dt)
+
+
+def gentle_mono_trajectory(n_frames: int, frame_dt: float = 0.1) -> SyntheticImu:
+    """tests/test_vision_e2e.py::test_mono_gentle_motion_bootstrap's
+    trajectory: seed 41, periodic excitation of period 8 s (angular rate
+    0.25 rad/s, acceleration 0.9 m/s^2), n_frames + 2 frames long."""
+    w = 2 * np.pi / 8.0
+    return simulate_trajectory(
+        duration=(n_frames + 2) * frame_dt, seed=41,
+        omega_fn=lambda t: 0.25 * np.array([np.sin(w * t), np.cos(w * t), np.sin(2 * w * t)]),
+        acc_w_fn=lambda t: np.array([0.9 * np.sin(w * t), 0.9 * np.cos(w * t), 0.4 * np.sin(2 * w * t)]))
+
+
+def render_scenario(rig, traj: SyntheticImu, landmarks: np.ndarray, n_frames: int,
+                    frame_dt: float = 0.1) -> VioScenario:
+    """Frames every `frame_dt` from t = 0, each camera of `rig` rendered by
+    render_world_image on the CPU in float64 at its true pose (any device:
+    the rig is read back to the CPU)."""
     cpu = lambda x: x.detach().cpu().double()  # noqa: E731
     times, images = [], []
     for fi in range(n_frames):
@@ -591,7 +608,7 @@ def vio_scenario(rig, n_frames: int = 20, frame_dt: float = 0.1) -> VioScenario:
         T_WS = kin.SE3(r=torch.from_numpy(traj.r[i]), q=torch.from_numpy(traj.q[i]))
         images.append([
             render_world_image(rig.specs[c], cpu(rig.intrinsics[c]),
-                               kin.compose(T_WS, kin.SE3(r=cpu(rig.T_SC.r[c]), q=cpu(rig.T_SC.q[c]))), lms)
+                               kin.compose(T_WS, kin.SE3(r=cpu(rig.T_SC.r[c]), q=cpu(rig.T_SC.q[c]))), landmarks)
             for c in range(rig.num_cameras)])
         times.append(t)
-    return VioScenario(traj=traj, landmarks=lms, times=times, images=images)
+    return VioScenario(traj=traj, landmarks=landmarks, times=times, images=images)

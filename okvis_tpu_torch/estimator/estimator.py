@@ -24,8 +24,14 @@ Window semantics follow the reference:
   triage (delete / ignore-observation / marginalize) follows the
   reference's hasNewObservations / obsCount rules.
 
-Not ported: the distributed solve (enable_distributed) and per-state
-extrinsics (WindowConfig raises for it). save_checkpoint / load_checkpoint
+Per-state extrinsics (cfg.extrinsics_per_state, the reference's per-state
+T_SCi blocks): every state gets its own T_SC block per camera, initialized
+from the previous state's, linked to it by a relative-pose drift factor of
+variance sigma_c^2 dt, the first state's blocks anchored by a prior through
+the marginal-prior mechanism; blocks of removed frames are marginalized with
+their pose and their drift links absorbed into the prior.
+
+Not ported: the distributed solve (enable_distributed). save_checkpoint / load_checkpoint
 write and read the port's own file: the host state of
 convert.estimator_to_numpy plus the window's multiframe keypoint tables.
 
@@ -55,6 +61,7 @@ from ..imu.preintegration import ImuParams, init_pose_from_imu, preintegrate, pr
 from ..kinematics.se3 import SE3
 from ..solver import (
     BaProblem,
+    ExtLinks,
     ImuLinks,
     MargPrior,
     Observations,
@@ -122,7 +129,7 @@ class WindowFullError(RuntimeError):
 
 
 # the first entry of a checkpoint file written by save_checkpoint
-CHECKPOINT_FORMAT = "okvis_tpu_torch.Estimator checkpoint 1"
+CHECKPOINT_FORMAT = "okvis_tpu_torch.Estimator checkpoint 2"
 
 
 @dataclasses.dataclass
@@ -279,6 +286,10 @@ class Estimator:
         self.hp_W = np.tile([0.0, 0, 0, 1], (L, 1))
         self.r_SC = _host(rig.T_SC.r)
         self.q_SC = _host(rig.T_SC.q)
+        # per-state (temporally varying) extrinsics tables and drift links
+        self.r_SC_t = np.tile(self.r_SC[None], (S, 1, 1))
+        self.q_SC_t = np.tile(self.q_SC[None], (S, 1, 1))
+        self.ext_links: List[dict] = []  # {id_a, id_b, trans_var, rot_var}
 
         # FEJ linearization points + marginal prior (numpy mirrors; the prior
         # stays on the device after a marginalization)
@@ -291,6 +302,9 @@ class Estimator:
         self.fej_r_SC = self.r_SC.copy()
         self.fej_q_SC = self.q_SC.copy()
         self.fej_ext_frozen = False
+        self.fej_r_SC_t = self.r_SC_t.copy()
+        self.fej_q_SC_t = self.q_SC_t.copy()
+        self.fej_ext_t_frozen = np.zeros(S, bool)  # per state slot
         D = self.cfg.dense_dim
         self.marg_H = np.zeros((D, D))
         self.marg_b0 = np.zeros(D)
@@ -584,6 +598,19 @@ class Estimator:
             self.sb[slot] = sbv
             sb = self.sb[slot].copy()
 
+        per_state = self.cfg.extrinsics_per_state
+        if per_state:
+            # a fresh per-state extrinsics block for this state, from the
+            # newest estimate (the reference starts at the nominal T_SC; the
+            # running estimate is equivalent under the drift link)
+            src = ([s for s in self.states.values() if s.id != state_id][-1].slot
+                   if len(self.states) > 1 else None)
+            self.r_SC_t[slot] = self.r_SC.copy() if src is None else self.r_SC_t[src].copy()
+            self.q_SC_t[slot] = self.q_SC.copy() if src is None else self.q_SC_t[src].copy()
+            self.fej_r_SC_t[slot] = self.r_SC_t[slot].copy()
+            self.fej_q_SC_t[slot] = self.q_SC_t[slot].copy()
+            self.fej_ext_t_frozen[slot] = False
+
         if len(self.states) == 1:
             # first frame: position+yaw pose prior (info 1e8) + speed/bias
             # prior (Estimator.cpp:238-285)
@@ -595,6 +622,22 @@ class Estimator:
             sba = float(_host(self.imu_params.sigma_ba))
             sqrt_info_sb = np.diag([1.0] * 3 + [1.0 / sbg] * 3 + [1.0 / sba] * 3)
             self.sb_priors.append(dict(pose_id=state_id, sb=sb.copy(), sqrt_info=sqrt_info_sb))
+            if per_state:
+                # first-frame extrinsics anchoring (Estimator.cpp:287-315): an
+                # absolute prior when sigma_absolute_* > 0, else a stiff gauge
+                # prior, both through the marginal prior around the FEJ point
+                sig_t = self.cfg.sigma_absolute_translation
+                sig_r = self.cfg.sigma_absolute_orientation
+                if sig_t > 1e-8 and sig_r > 1e-8:
+                    info = np.concatenate([np.full(3, 1.0 / sig_t**2), np.full(3, 1.0 / sig_r**2)])
+                else:
+                    info = np.full(6, 1e14 if self.dtype == torch.float64 else 1e8)
+                self._materialize_prior()
+                for c in range(self.cfg.num_cameras):
+                    i0 = self.cfg.ext_ps_offset(slot, c)
+                    self.marg_H[i0: i0 + 6, i0: i0 + 6] += np.diag(info)
+                self.fej_ext_t_frozen[slot] = True
+                self.marg_valid = True
         else:
             # IMU link to the previous state
             last = [s for s in self.states.values() if s.id != state_id][-1]
@@ -602,6 +645,14 @@ class Estimator:
             self.imu_links.append(ImuLinkRecord(
                 id_a=last.id, id_b=state_id, ts=ts_p, gyro=gy_p, acc=ac_p,
                 t0=last.timestamp, t1=float(timestamp)))
+            if per_state:
+                # temporal drift link (relative-pose error of variance
+                # sigma_c^2 dt, Estimator.cpp:306-340)
+                dt = max(float(timestamp) - last.timestamp, 1e-6)
+                self.ext_links.append(dict(
+                    id_a=last.id, id_b=state_id,
+                    trans_var=max(self.cfg.sigma_c_relative_translation**2 * dt, 1e-16),
+                    rot_var=max(self.cfg.sigma_c_relative_orientation**2 * dt, 1e-16)))
         return state_id
 
     # ------------------------------------------------------------------
@@ -757,6 +808,8 @@ class Estimator:
             r_SC_lin=self._t(self.fej_r_SC),
             q_SC_lin=self._t(self.fej_q_SC),
             valid=self._i(np.asarray(self.marg_valid)),
+            r_SC_t_lin=self._t(self.fej_r_SC_t) if self.cfg.extrinsics_per_state else None,
+            q_SC_t_lin=self._t(self.fej_q_SC_t) if self.cfg.extrinsics_per_state else None,
         )
 
     def _build_problem(self, pre=None, tier=None) -> BaProblem:
@@ -787,9 +840,12 @@ class Estimator:
                 lm_mask[lm.slot] = True
             hp_host = self.hp_W
 
+        per_state = cfg.extrinsics_per_state
         states = WindowStates(
             r_WS=self._t(self.r_WS), q_WS=self._t(self.q_WS), speed_and_bias=self._t(self.sb),
-            r_SC=self._t(self.r_SC), q_SC=self._t(self.q_SC), hp_W=self._t(hp_host))
+            r_SC=self._t(self.r_SC), q_SC=self._t(self.q_SC), hp_W=self._t(hp_host),
+            r_SC_t=self._t(self.r_SC_t) if per_state else None,
+            q_SC_t=self._t(self.q_SC_t) if per_state else None)
 
         # observations: numpy gathers over the live rows of the columnar
         # mirror (the sqrt(64/size^2) weights were stamped at add time)
@@ -884,7 +940,32 @@ class Estimator:
         return BaProblem(
             states=states, state_mask=self._i(state_mask), sb_mask=self._i(sb_mask),
             lm_mask=self._i(lm_mask), obs=obs, imu_links=links, pose_priors=pose_priors,
-            sb_priors=sb_priors, marg=self._marg_prior())
+            sb_priors=sb_priors, marg=self._marg_prior(),
+            ext_links=self._ext_links_table(self.ext_links) if per_state else None)
+
+    def _ext_links_table(self, links) -> ExtLinks:
+        """Padded relative-extrinsics drift factor table of `links` (per-state
+        mode): one row a (link, camera); links whose states left the window
+        are skipped."""
+        C, Ke = self.cfg.num_cameras, self.cfg.ext_link_capacity
+        el_a = np.zeros(Ke, np.int32)
+        el_b = np.ones(Ke, np.int32)
+        el_c = np.zeros(Ke, np.int32)
+        el_W = np.zeros((Ke, 6, 6))
+        el_m = np.zeros(Ke, bool)
+        i = 0
+        for l in links:
+            if l["id_a"] not in self.states or l["id_b"] not in self.states:
+                continue
+            w = np.diag([1.0 / np.sqrt(l["trans_var"])] * 3 + [1.0 / np.sqrt(l["rot_var"])] * 3)
+            for c in range(C):
+                if i >= Ke:
+                    raise RuntimeError("extrinsics link table full")
+                el_a[i], el_b[i] = self.states[l["id_a"]].slot, self.states[l["id_b"]].slot
+                el_c[i], el_W[i], el_m[i] = c, w, True
+                i += 1
+        return ExtLinks(idx_a=self._i(el_a), idx_b=self._i(el_b), cam=self._i(el_c), sqrt_info=self._t(el_W),
+                        mask=self._i(el_m))
 
     def _preintegrate_links(self, links, sb_source: np.ndarray):
         """Batched preintegration of a list of links, padded to the static
@@ -949,7 +1030,9 @@ class Estimator:
                   f"dcost={dc:.3e} c0_tier={c0_t:.6f} c0_full={c0_f:.6f}", flush=True)
         # pull back the results in one device-to-host copy
         pulls = [states.r_WS, states.q_WS, states.speed_and_bias, states.hp_W]
-        if self.cfg.estimate_extrinsics:
+        if self.cfg.extrinsics_per_state:
+            pulls += [states.r_SC_t, states.q_SC_t]
+        elif self.cfg.estimate_extrinsics:
             pulls += [states.r_SC, states.q_SC]
         # landmark quality (Estimator.cpp:880-900), carried out of the final
         # normal equations by the solve
@@ -970,7 +1053,15 @@ class Estimator:
         else:
             self.r_WS, self.q_WS, self.sb, self.hp_W = (f.copy() for f in fetched[:4])
         i = 4
-        if self.cfg.estimate_extrinsics:
+        if self.cfg.extrinsics_per_state:
+            self.r_SC_t, self.q_SC_t = fetched[i].copy(), fetched[i + 1].copy()
+            i += 2
+            # the newest state's calibration mirrors into the shared tables
+            # the frontend reads
+            newest = self._last_state()
+            self.r_SC = self.r_SC_t[newest.slot].copy()
+            self.q_SC = self.q_SC_t[newest.slot].copy()
+        elif self.cfg.estimate_extrinsics:
             self.r_SC, self.q_SC = fetched[i].copy(), fetched[i + 1].copy()
             i += 2
         if not extra_quality:
@@ -1041,6 +1132,17 @@ class Estimator:
                     self.pose_priors.remove(pr)
                     redo_fixation = True
 
+        # per-state extrinsics blocks of removed frames are marginalized with
+        # the pose, their drift links absorbed into the prior
+        # (Estimator.cpp:587-619)
+        absorb_ext_links: List[dict] = []
+        if self.cfg.extrinsics_per_state:
+            for s in remove_frames:
+                for l in list(self.ext_links):
+                    if l["id_a"] == s.id or l["id_b"] == s.id:
+                        absorb_ext_links.append(l)
+                        self.ext_links.remove(l)
+
         # --- landmark triage (Estimator.cpp:624-725) ---
         # absorbed observations carry their landmark slot (the landmark record
         # is removed only after the marginalization step consumed the slot)
@@ -1109,6 +1211,8 @@ class Estimator:
             involved_ids.add(o.pose_id)
         for s in marg_sb_states + remove_frames:
             involved_ids.add(s.id)
+        for l in absorb_ext_links:
+            involved_ids.update((l["id_a"], l["id_b"]))
         for sid in involved_ids:
             if sid in self.states:
                 s = self.states[sid]
@@ -1117,6 +1221,10 @@ class Estimator:
                     self.fej_q_WS[s.slot] = self.q_WS[s.slot]
                     self.fej_sb[s.slot] = self.sb[s.slot]
                     s.fej_frozen = True
+                if self.cfg.extrinsics_per_state and not self.fej_ext_t_frozen[s.slot]:
+                    self.fej_r_SC_t[s.slot] = self.r_SC_t[s.slot]
+                    self.fej_q_SC_t[s.slot] = self.q_SC_t[s.slot]
+                    self.fej_ext_t_frozen[s.slot] = True
 
         # --- build masks ---
         D = self.cfg.dense_dim
@@ -1125,6 +1233,9 @@ class Estimator:
             marg_dense[s.slot * 15 + 6: s.slot * 15 + 15] = True
         for s in remove_frames:
             marg_dense[s.slot * 15: s.slot * 15 + 6] = True
+            if self.cfg.extrinsics_per_state:
+                i0 = self.cfg.ext_ps_offset(s.slot, 0)
+                marg_dense[i0: i0 + 6 * self.cfg.num_cameras] = True
         marg_lm_mask = np.zeros(self.cfg.max_landmarks, bool)
         for slot in marg_lm_slots:
             marg_lm_mask[slot] = True
@@ -1135,11 +1246,12 @@ class Estimator:
             self.fej_ext_frozen = True
 
         any_marg = marg_dense.any() or marg_lm_mask.any()
-        if any_marg and (absorb_links or absorb_obs or absorb_sb_priors or self.marg_valid):
+        if any_marg and (absorb_links or absorb_obs or absorb_sb_priors or absorb_ext_links or self.marg_valid):
             m_tier = self._select_marg_tier(absorb_obs, marg_lm_slots)
             m_LO = None if m_tier is None else (m_tier["L"], m_tier["O"])
             problem = self._build_marg_problem(
-                absorb_links, absorb_obs, absorb_sb_priors, marg_lm_slots, marg_lm_mask, tier=m_tier)
+                absorb_links, absorb_obs, absorb_sb_priors, marg_lm_slots, marg_lm_mask, absorb_ext_links,
+                tier=m_tier)
             # the host's state mask, never read back from the device
             keep_dense = dense_dim_mask(
                 self.cfg, torch.from_numpy(self._state_mask() | self._prior_covered_state_mask()),
@@ -1206,16 +1318,21 @@ class Estimator:
         return m
 
     def states_slot_reset(self, slot: int) -> None:
-        a, b = slot * 15, slot * 15 + 15
-        if isinstance(self.marg_H, torch.Tensor):
-            # device-resident prior: in-place zeroing of views, no host copy
-            self.marg_H[a:b, :].zero_()
-            self.marg_H[:, a:b].zero_()
-            self.marg_b0[a:b].zero_()
-        else:
-            self.marg_H[a:b, :] = 0.0
-            self.marg_H[:, a:b] = 0.0
-            self.marg_b0[a:b] = 0.0
+        spans = [(slot * 15, slot * 15 + 15)]
+        if self.cfg.extrinsics_per_state:
+            e0 = self.cfg.ext_ps_offset(slot, 0)
+            spans.append((e0, e0 + 6 * self.cfg.num_cameras))
+            self.fej_ext_t_frozen[slot] = False
+        for a, b in spans:
+            if isinstance(self.marg_H, torch.Tensor):
+                # device-resident prior: in-place zeroing of views, no host copy
+                self.marg_H[a:b, :].zero_()
+                self.marg_H[:, a:b].zero_()
+                self.marg_b0[a:b].zero_()
+            else:
+                self.marg_H[a:b, :] = 0.0
+                self.marg_H[:, a:b] = 0.0
+                self.marg_b0[a:b] = 0.0
 
     def _remove_landmark(self, lm_id: int) -> None:
         self._remove_landmarks((lm_id,))
@@ -1238,7 +1355,7 @@ class Estimator:
         self.observations = kept_obs
 
     def _build_marg_problem(self, absorb_links, absorb_obs, absorb_sb_priors, marg_lm_slots, marg_lm_mask,
-                            tier=None) -> BaProblem:
+                            absorb_ext_links=(), tier=None) -> BaProblem:
         """Problem holding exactly the factors to absorb, with the states at
         their FEJ linearization points (frozen for prior-covered states,
         current for the landmarks being eliminated). With `tier` (from
@@ -1252,9 +1369,12 @@ class Estimator:
             hp_host[: tier["slots"].size] = self.hp_W[tier["slots"]]
         else:
             hp_host = self.hp_W
+        per_state = cfg.extrinsics_per_state
         states = p.states._replace(
             r_WS=self._t(self.fej_r_WS), q_WS=self._t(self.fej_q_WS), speed_and_bias=self._t(self.fej_sb),
-            r_SC=self._t(self.fej_r_SC), q_SC=self._t(self.fej_q_SC), hp_W=self._t(hp_host))
+            r_SC=self._t(self.fej_r_SC), q_SC=self._t(self.fej_q_SC), hp_W=self._t(hp_host),
+            r_SC_t=self._t(self.fej_r_SC_t) if per_state else None,
+            q_SC_t=self._t(self.fej_q_SC_t) if per_state else None)
 
         obs = p.obs
         if absorb_obs:
@@ -1307,8 +1427,11 @@ class Estimator:
                 lm_mask[tier["remap"][np.asarray(marg_lm_slots, int)]] = True
         else:
             lm_mask = marg_lm_mask
+        ext_links = p.ext_links
+        if per_state and absorb_ext_links:
+            ext_links = self._ext_links_table(absorb_ext_links)
         return p._replace(states=states, state_mask=self._i(self._state_mask()), lm_mask=self._i(lm_mask),
-                          obs=obs, imu_links=links, sb_priors=sp, marg=self._marg_prior())
+                          obs=obs, imu_links=links, sb_priors=sp, marg=self._marg_prior(), ext_links=ext_links)
 
     # ------------------------------------------------------------------
     # checkpoint / resume (the JAX package's estimator.py:1863-1948)
@@ -1324,16 +1447,18 @@ class Estimator:
         from .. import convert  # convert imports this module
 
         blob = dict(format=CHECKPOINT_FORMAT, estimator=convert.estimator_to_numpy(self),
+                    prior_on_device=isinstance(self.marg_H, torch.Tensor),
                     multiframes=[convert.multiframe_to_numpy(mf) for mf in self.multiframes.values()])
         with open(path, "wb") as f:
             pickle.dump(blob, f)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a file of save_checkpoint into an estimator built with
-        the same rig and window. A marginal prior goes back to the
-        estimator's device, multiframes to the rig's, and IdProvider moves
-        past every restored id. Unpickles the file: load only files this
-        program wrote."""
+        the same rig and window. A marginal prior that was on the device
+        goes back to the estimator's device (a host prior, as before the
+        first marginalization, stays float64 on the host), multiframes go
+        to the rig's device, and IdProvider moves past every restored id.
+        Unpickles the file: load only files this program wrote."""
         from .. import convert  # convert imports this module
 
         with open(path, "rb") as f:
@@ -1341,7 +1466,7 @@ class Estimator:
         if not isinstance(blob, dict) or blob.get("format") != CHECKPOINT_FORMAT:
             raise ValueError(f"{path}: not a checkpoint of okvis_tpu_torch's Estimator")
         convert.load_estimator_state(self, blob["estimator"])
-        if self.marg_valid:
+        if blob["prior_on_device"]:
             self.marg_H, self.marg_b0, self.marg_c0 = (self._t(x) for x in (self.marg_H, self.marg_b0, self.marg_c0))
         self.multiframes = {}
         for m in blob["multiframes"]:
@@ -1402,8 +1527,13 @@ class Estimator:
         return self._last_state().id
 
     def get_extrinsics(self, cam_idx: int, state_id: Optional[int] = None) -> kin.SE3:
-        """Camera extrinsics T_SC (shared block; `state_id` is accepted for
-        the JAX package's signature, per-state extrinsics are not ported)."""
+        """Camera extrinsics T_SC. In per-state mode, `state_id` selects a
+        state's block (default: the shared mirror, which optimize keeps at
+        the newest state's estimate)."""
+        if self.cfg.extrinsics_per_state and state_id is not None:
+            slot = self.states[state_id].slot
+            return kin.SE3(r=torch.from_numpy(self.r_SC_t[slot, cam_idx].copy()),
+                           q=torch.from_numpy(self.q_SC_t[slot, cam_idx].copy()))
         return kin.SE3(r=torch.from_numpy(self.r_SC[cam_idx].copy()),
                        q=torch.from_numpy(self.q_SC[cam_idx].copy()))
 

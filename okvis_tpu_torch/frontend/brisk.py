@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..device import set_full_precision
-from .detection import Keypoints, detect_keypoints
+from .detection import Keypoints, detect_keypoints, detect_keypoints_pyramid
 
 DESCRIPTOR_BITS = 512
 DESCRIPTOR_WORDS = DESCRIPTOR_BITS // 32
@@ -222,3 +222,31 @@ def detect_and_describe_batch(
     levels = blur_pyramid(images)  # (C, L, H, W)
     desc = _describe_from_levels(levels, kps.uv, extraction_angles)
     return kps, desc
+
+
+def detect_and_describe_batch_pyramid(
+    images: torch.Tensor,  # (C, H, W)
+    extraction_angles: torch.Tensor,  # (C,)
+    masks: torch.Tensor = None,  # (C, H, W) bool or None
+    threshold: float = 30.0,
+    max_keypoints: int = 400,
+    nms_radius: int = 4,
+    border: int = 20,
+    octaves: int = 2,
+):
+    """Scale-space and/or masked detection with scale-aware description for
+    a whole multiframe. Returns (Keypoints (C, K, ...), sizes (C, K),
+    descriptors (C, K, 16)); with octaves == 0 every size is 8 and the
+    descriptors use the base pattern."""
+    images = images.to(torch.float32)
+    if octaves > 0:
+        kps, sizes = detect_keypoints_pyramid(
+            images, threshold=threshold, max_keypoints=max_keypoints, nms_radius=nms_radius,
+            border=border, octaves=octaves, mask=masks)
+    else:
+        kps = detect_keypoints(images, threshold=threshold, max_keypoints=max_keypoints,
+                               nms_radius=nms_radius, border=border, mask=masks)
+        sizes = torch.full_like(kps.score, 8.0)
+    levels = blur_pyramid(images)
+    desc = _describe_from_levels(levels, kps.uv, extraction_angles, sizes if octaves > 0 else None)
+    return kps, sizes, desc

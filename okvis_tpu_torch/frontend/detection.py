@@ -1,5 +1,5 @@
 """Keypoint detection: Harris corner score + NMS + top-K selection
-(port of okvis_tpu.frontend.detection, single octave).
+(port of okvis_tpu.frontend.detection).
 
 Everything is fixed-shape: detection returns `max_keypoints` slots per
 camera with a validity mask. The camera batch is the leading dimension
@@ -8,7 +8,8 @@ where the JAX package vmapped.
 ``harris_suppressed`` is the (raw, suppressed) stage: on CUDA tensors it
 launches the hand-written kernel (``ops/detection_cuda.py``), on CPU tensors
 it runs ``harris_suppressed_plain`` — the JAX package's XLA-path semantics in
-torch ops. ``detect_keypoints_pyramid`` (octaves > 0) is not ported yet.
+torch ops. ``detect_keypoints_pyramid`` (scale-space detection) runs that
+stage once per octave on the whole (C, H/2^o, W/2^o) camera stack.
 """
 
 from __future__ import annotations
@@ -207,3 +208,82 @@ def detect_keypoints(
     if single:
         return Keypoints(*(t[0] for t in kps))
     return kps
+
+
+def _downsample2(img: torch.Tensor) -> torch.Tensor:
+    """2x area downsample (average pooling) of (..., H, W): each output is
+    ((a00 + a01) + a10) + a11, then / 4, the JAX package's reduction order."""
+    H, W = img.shape[-2:]
+    x = img[..., : H - H % 2, : W - W % 2]
+    a00, a01 = x[..., 0::2, 0::2], x[..., 0::2, 1::2]
+    a10, a11 = x[..., 1::2, 0::2], x[..., 1::2, 1::2]
+    return (((a00 + a01) + a10) + a11) / 4.0
+
+
+def _top_k_stable(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, ties in index
+    order (jax.lax.top_k's rule), by a stable descending sort."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def detect_keypoints_pyramid(
+    img: torch.Tensor,
+    threshold: float = 30.0,
+    max_keypoints: int = 400,
+    nms_radius: int = 4,
+    border: int = 20,
+    octaves: int = 2,
+    mask: torch.Tensor = None,
+) -> Tuple[Keypoints, torch.Tensor]:
+    """Scale-space detection over `octaves` + 1 pyramid levels of an (H, W)
+    image or a (C, H, W) batch, with an optional (H, W) or (C, H, W) bool
+    detection mask.
+
+    Per level: Harris + NMS + per-level top-K (one Harris launch for the
+    camera stack), the border halved per octave (at least 4 px) and the mask
+    subsampled [::2, ::2]; coordinates are scaled back to the base image by
+    uv 2^o + (2^o - 1)/2. A detection with a strictly stronger one within
+    nms_radius base-image pixels at any level is dropped, and the strongest
+    max_keypoints survive. Returns (Keypoints, sizes) with sizes 8 2^o."""
+    single = img.dim() == 2
+    images = (img[None] if single else img).to(torch.float32)
+    C = images.shape[0]
+    if mask is not None and mask.dim() == 2:
+        mask = mask.expand(C, *mask.shape)
+    levels, masks = [images], [mask]
+    for _ in range(octaves):
+        levels.append(_downsample2(levels[-1]))
+        masks.append(None if masks[-1] is None else masks[-1][:, ::2, ::2])
+
+    uvs, scores, valids, sizes = [], [], [], []
+    for o, (im, m) in enumerate(zip(levels, masks)):
+        kps = detect_keypoints(im, threshold=threshold, max_keypoints=max_keypoints,
+                               nms_radius=nms_radius, border=max(4, border // (2 ** o)),
+                               mask=None if m is None else m.contiguous())
+        scale = float(2 ** o)
+        uvs.append(kps.uv * scale + (scale - 1.0) / 2.0)
+        scores.append(kps.score)
+        valids.append(kps.mask)
+        sizes.append(torch.full_like(kps.score, 8.0 * scale))
+    uv = torch.cat(uvs, dim=1)  # (C, (o+1) K, 2)
+    score = torch.cat(scores, dim=1)
+    valid = torch.cat(valids, dim=1)
+    size = torch.cat(sizes, dim=1)
+    # cross-scale suppression: drop a detection with a strictly stronger one
+    # within nms_radius (base-image pixels) at any level
+    d2 = torch.sum((uv[:, :, None, :] - uv[:, None, :, :]) ** 2, dim=-1)
+    neg_all = torch.where(valid, score, float("-inf"))
+    stronger = (neg_all[:, None, :] > neg_all[:, :, None]) & (d2 < float(nms_radius) ** 2) & valid[:, None, :]
+    valid = valid & ~torch.any(stronger, dim=2)
+    # the global strongest max_keypoints
+    vals, idx = _top_k_stable(torch.where(valid, score, float("-inf")), max_keypoints)
+    kps = Keypoints(
+        uv=torch.gather(uv, 1, idx[..., None].expand(C, max_keypoints, 2)),
+        score=torch.gather(score, 1, idx),
+        mask=torch.gather(valid, 1, idx) & torch.isfinite(vals),
+    )
+    size = torch.gather(size, 1, idx)
+    if single:
+        return Keypoints(*(t[0] for t in kps)), size[0]
+    return kps, size

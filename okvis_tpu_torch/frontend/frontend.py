@@ -5,7 +5,8 @@ Host code orchestrates; the heavy work runs in the fixed-shape programs of
 frontend.kernels on the rig's device:
 
 - detect_and_describe(_multi) (Frontend.cpp:92-114; gravity-aligned
-  extraction), single octave without detection masks;
+  extraction), single octave, or scale-space (detection_octaves > 0) with
+  per-keypoint sizes, with optional per-camera detection masks;
 - data_association_and_initialization (Frontend.cpp:117-271): match to the
   last ≤ 3 keyframes (3D-2D then 2D-2D), RANSAC outlier rejection, the
   keyframe decision, match to the last frame, stereo matching with
@@ -18,9 +19,6 @@ more call. Every RANSAC draw goes through Frontend._draw, from a
 torch.Generator on the rig's device seeded 7 (the JAX package seeds its key
 with 7), in the JAX package's order of key splits, so a test can replay the
 JAX draws; the five-point seed comes from a host generator.
-
-Not ported: scale-space (detection_octaves > 0) and masked detection
-(raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -43,8 +41,13 @@ from ..utils import syncstats
 from ..utils.ids import IdProvider
 from ..utils.timing import Timing
 from . import kernels
-from .brisk import describe_keypoints, detect_and_describe_batch, gravity_extraction_angle
-from .detection import detect_keypoints
+from .brisk import (
+    describe_keypoints,
+    detect_and_describe_batch,
+    detect_and_describe_batch_pyramid,
+    gravity_extraction_angle,
+)
+from .detection import detect_keypoints, detect_keypoints_pyramid
 from .frame import FrameData, MultiFrame
 from .keyframe import need_new_keyframe
 
@@ -105,26 +108,32 @@ class Frontend:
         return torch.rand(shape, generator=self._gen, dtype=self.rig.dtype, device=self.device)
 
     # ------------------------------------------------------------------
-    def _check_detection_mode(self) -> None:
-        if self.cfg.detection_octaves > 0 or self.cfg.detection_masks is not None:
-            raise NotImplementedError(
-                "okvis_tpu_torch: scale-space and masked detection are not ported yet")
-
     def detect_and_describe(self, cam_idx: int, image, T_WC: Optional[kin.SE3] = None) -> FrameData:
         """Detection + gravity-aligned description of one camera's image
-        (Frontend.cpp:92-114)."""
-        self._check_detection_mode()
+        (Frontend.cpp:92-114), scale-space when detection_octaves > 0, with
+        the camera's detection mask when the config has masks."""
+        cfg = self.cfg
         image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-        kps = detect_keypoints(image, threshold=self.cfg.detection_threshold,
-                               max_keypoints=self.cfg.max_keypoints)
+        cam_mask = None
+        if cfg.detection_masks is not None:
+            cam_mask = torch.as_tensor(np.asarray(cfg.detection_masks[cam_idx], bool), device=self.device)
+        sizes = None
+        if cfg.detection_octaves > 0:
+            kps, sizes = detect_keypoints_pyramid(
+                image, threshold=cfg.detection_threshold, max_keypoints=cfg.max_keypoints,
+                octaves=cfg.detection_octaves, mask=cam_mask)
+        else:
+            kps = detect_keypoints(image, threshold=cfg.detection_threshold,
+                                   max_keypoints=cfg.max_keypoints, mask=cam_mask)
         angle = None
         if T_WC is not None:
             down = T_WC.q.new_tensor([0.0, 0.0, -1.0])
             g_C = kin.quat_rotate(kin.quat_conjugate(T_WC.q), down)
             angle = gravity_extraction_angle(g_C).to(torch.float32)
-        desc = describe_keypoints(image, kps, angle)
+        desc = describe_keypoints(image, kps, angle, sizes)
         return FrameData(keypoints=kps, descriptors=desc,
-                         landmark_ids=np.zeros(self.cfg.max_keypoints, np.int64), image=image)
+                         landmark_ids=np.zeros(cfg.max_keypoints, np.int64), image=image,
+                         sizes=None if sizes is None else sizes.cpu().numpy())
 
     def _extraction_angles(self, T_WS: Optional[kin.SE3], C: int) -> torch.Tensor:
         """Per-camera angle of gravity projected into the image (float32)."""
@@ -141,23 +150,31 @@ class Frontend:
     def detect_and_describe_multi(self, images, T_WS: Optional[kin.SE3] = None) -> List[FrameData]:
         """All cameras of a multiframe in one batched call, with gravity-aligned
         per-camera extraction angles. `images` are (H, W) arrays or tensors."""
-        self._check_detection_mode()
+        cfg = self.cfg
         C = len(images)
         stack = torch.stack(
             [torch.as_tensor(im, dtype=torch.float32, device=self.device) for im in images])
         if T_WS is not None:  # the angles are computed in the rig's dtype
             T_WS = kin.SE3(r=T_WS.r.to(self.device, self.rig.dtype), q=T_WS.q.to(self.device, self.rig.dtype))
-        kps_b, desc_b = detect_and_describe_batch(
-            stack,
-            self._extraction_angles(T_WS, C),
-            threshold=self.cfg.detection_threshold,
-            max_keypoints=self.cfg.max_keypoints,
-        )
-        # one joint host copy of every camera's uv/mask mirrors: the
-        # association path reads them many times
+        angles = self._extraction_angles(T_WS, C)
+        sizes_b = None
+        if cfg.detection_octaves > 0 or cfg.detection_masks is not None:
+            # scale-space and/or masked detection, batched over the cameras
+            masks = None
+            if cfg.detection_masks is not None:
+                masks = torch.from_numpy(np.stack([np.asarray(m, bool) for m in cfg.detection_masks])).to(self.device)
+            kps_b, sizes_b, desc_b = detect_and_describe_batch_pyramid(
+                stack, angles, masks, threshold=cfg.detection_threshold,
+                max_keypoints=cfg.max_keypoints, octaves=cfg.detection_octaves)
+            if cfg.detection_octaves == 0:
+                sizes_b = None
+        else:
+            kps_b, desc_b = detect_and_describe_batch(
+                stack, angles, threshold=cfg.detection_threshold, max_keypoints=cfg.max_keypoints)
+        # one joint host copy of every camera's uv/mask mirrors (and sizes):
+        # the association path reads them many times
         syncstats.bump("detect_fetch")
-        uv_h = kps_b.uv.cpu().numpy()
-        mask_h = kps_b.mask.cpu().numpy()
+        uv_h, mask_h, sizes_h = device_get((kps_b.uv, kps_b.mask, sizes_b))
         out = []
         for c in range(C):
             fd = FrameData(
@@ -165,6 +182,7 @@ class Frontend:
                 descriptors=desc_b[c],
                 landmark_ids=np.zeros(self.cfg.max_keypoints, np.int64),
                 image=stack[c],
+                sizes=None if sizes_h is None else sizes_h[c],
             )
             fd.set_host_mirrors(uv_h[c], mask_h[c])
             out.append(fd)

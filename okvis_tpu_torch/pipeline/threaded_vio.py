@@ -27,9 +27,8 @@ cannot pass for a quiet pipeline:
   WindowFullError (the JAX package drops on any RuntimeError or ValueError,
   which in PyTorch would include a failed launch or an exhausted card).
 
-Not ported (construction raises NotImplementedError): per-state
-extrinsics, the distributed solve, the pose-graph layer and multi-octave
-detection.
+Not ported (construction raises NotImplementedError): the distributed
+solve and the pose-graph layer.
 """
 
 from __future__ import annotations
@@ -53,6 +52,7 @@ from ..estimator.estimator import Estimator, WindowFullError, device_get
 from ..frontend.frame import MultiFrame
 from ..frontend.frontend import Frontend, FrontendConfig
 from ..imu.preintegration import init_pose_from_imu
+from ..solver.structure import WindowConfig
 from ..utils import syncstats
 from ..utils.ids import IdProvider
 from ..utils.timing import Timer, Timing
@@ -100,15 +100,16 @@ class ThreadedVio:
         self.device = resolve_device(device)
         self.params = params
         # online extrinsics calibration when the config provides absolute
-        # extrinsic sigmas (ref Estimator.cpp:287-307; 0.0 = fixed); BOTH
-        # relative sigmas select per-state extrinsics (Estimator.cpp:199-218)
+        # extrinsic sigmas (ref Estimator.cpp:287-307; 0.0 = fixed); when
+        # BOTH relative sigmas are set, per-state (temporally varying)
+        # extrinsics blocks linked by relative-pose drift factors
+        # (Estimator.cpp:199-218, 306-340)
         sig_t = params.camera_params.sigma_absolute_translation
         sig_r = params.camera_params.sigma_absolute_orientation
         rel_t = params.camera_params.sigma_c_relative_translation
         rel_r = params.camera_params.sigma_c_relative_orientation
         online_calib = sig_t > 1e-8 and sig_r > 1e-8
-        if rel_t > 1e-12 and rel_r > 1e-12:
-            raise _not_ported("per-state extrinsics (sigma_c_relative_*)", 6)
+        per_state = rel_t > 1e-12 and rel_r > 1e-12
         if (rel_t > 1e-12) != (rel_r > 1e-12):
             _log.warning(
                 "only one of sigma_c_relative_translation/orientation is nonzero — temporal extrinsics "
@@ -117,23 +118,36 @@ class ThreadedVio:
             raise _not_ported("the distributed solve (distributed_devices > 0)", 8)
         if params.posegraph.enabled:
             raise _not_ported("the pose-graph layer (posegraph.enabled)", 7)
-        if params.optimization.detection_octaves > 0:
-            raise _not_ported("multi-octave detection (detection_octaves > 0)", 6)
 
         self.rig = rig or build_rig(params, device=self.device)
         if self.rig.device.type != self.device.type:
             raise ValueError(f"ThreadedVio: the rig is on {self.rig.device}, the pipeline on {self.device}")
         self.imu_params = build_imu_params(params, device=self.device, dtype=dtype)
+        cfg = None
+        if per_state:
+            S = params.optimization.num_keyframes + params.optimization.num_imu_frames + 1
+            cfg = WindowConfig(
+                num_states=S,
+                num_cameras=self.rig.num_cameras,
+                camera_specs=tuple(self.rig.specs),
+                max_imu_links=S - 1,
+                extrinsics_per_state=True,
+                sigma_c_relative_translation=rel_t,
+                sigma_c_relative_orientation=rel_r,
+                sigma_absolute_translation=sig_t,
+                sigma_absolute_orientation=sig_r,
+            )
         self.estimator = Estimator(
             self.rig,
             self.imu_params,
             num_keyframes=params.optimization.num_keyframes,
             num_imu_frames=params.optimization.num_imu_frames,
-            estimate_extrinsics=online_calib,
+            cfg=cfg,
+            estimate_extrinsics=online_calib and not per_state,
             dtype=dtype,
             device=self.device,
         )
-        if online_calib:
+        if online_calib and not per_state:
             self.estimator.add_extrinsics_prior(sig_t, sig_r)
         # online calibration: the matching/triangulation gates must admit
         # the image-space error an uncalibrated rig produces (~focal x

@@ -10,6 +10,7 @@ from .optimize import (  # noqa: F401
 )
 from .structure import (  # noqa: F401
     BaProblem,
+    ExtLinks,
     ImuLinks,
     MargPrior,
     Observations,

@@ -26,7 +26,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from ..factors.imu_factor import imu_error
-from ..factors.priors import pose_error, speed_and_bias_error
+from ..factors.priors import pose_error, relative_pose_error, speed_and_bias_error
 from ..factors.reprojection import reprojection_error
 from ..imu.preintegration import ImuParams
 from ..kinematics import se3
@@ -56,7 +56,12 @@ def marg_delta_chi(cfg: WindowConfig, states: WindowStates, marg: MargPrior) -> 
     d_pose = se3.minus(SE3(r=marg.r_WS_lin, q=marg.q_WS_lin), SE3(r=states.r_WS, q=states.q_WS))
     d_sb = states.speed_and_bias - marg.sb_lin
     d_ext = se3.minus(SE3(r=marg.r_SC_lin, q=marg.q_SC_lin), SE3(r=states.r_SC, q=states.q_SC))
-    return torch.cat([torch.cat([d_pose, d_sb], dim=-1).reshape(-1), d_ext.reshape(-1)])
+    parts = [torch.cat([d_pose, d_sb], dim=-1).reshape(-1), d_ext.reshape(-1)]
+    if cfg.extrinsics_per_state:
+        d_ps = se3.minus(SE3(r=marg.r_SC_t_lin.reshape(-1, 3), q=marg.q_SC_t_lin.reshape(-1, 4)),
+                         SE3(r=states.r_SC_t.reshape(-1, 3), q=states.q_SC_t.reshape(-1, 4)))
+        parts.append(d_ps.reshape(-1))  # (S*C*6,)
+    return torch.cat(parts)
 
 
 def factor_rows(J: torch.Tensor, cols: torch.Tensor, D: int) -> torch.Tensor:
@@ -88,9 +93,13 @@ def evaluate_reprojection(cfg: WindowConfig, intrinsics: List[torch.Tensor], obs
     J_ext = torch.zeros((O, 2, 6), dtype=dtype, device=device)
     J_hp = torch.zeros((O, 2, 3), dtype=dtype, device=device)
     for c in range(C):
+        if cfg.extrinsics_per_state:
+            # each observation sees its own state's T_SC block
+            T_SC = SE3(r=states.r_SC_t[obs.state_idx, c], q=states.q_SC_t[obs.state_idx, c])
+        else:
+            T_SC = SE3(r=states.r_SC[c], q=states.q_SC[c])
         r_c, J_c, _valid = reprojection_error(
-            cfg.camera_specs[c], intrinsics[c], obs.keypoint, obs.sqrt_info, T_WS_o, hp_o,
-            SE3(r=states.r_SC[c], q=states.q_SC[c]))
+            cfg.camera_specs[c], intrinsics[c], obs.keypoint, obs.sqrt_info, T_WS_o, hp_o, T_SC)
         sel = (obs.cam_idx == c)[:, None]
         res = torch.where(sel, r_c, res)
         J_pose = torch.where(sel[..., None], J_c.J_pose, J_pose)
@@ -106,12 +115,19 @@ def evaluate_reprojection(cfg: WindowConfig, intrinsics: List[torch.Tensor], obs
     scale = w_r[:, None, None] * m[..., None]
     J_pose = J_pose * scale
     J_hp = J_hp * scale
-    J_ext = J_ext * scale if cfg.estimate_extrinsics else torch.zeros_like(J_ext)
+    J_ext = (J_ext * scale if cfg.estimate_extrinsics or cfg.extrinsics_per_state
+             else torch.zeros_like(J_ext))
 
     # dense 12-column block per observation: [pose(6) | extrinsics(6)],
-    # scattered into its row of D columns (the 12 columns never repeat)
+    # scattered into its row of D columns (the 12 columns never repeat); the
+    # extrinsics columns are the shared block's or the observation's
+    # per-state block's
     col6 = torch.arange(6, dtype=torch.int64, device=device)
-    cols = torch.cat([obs.state_idx[:, None] * 15 + col6, S * 15 + obs.cam_idx[:, None] * 6 + col6], dim=1)
+    if cfg.extrinsics_per_state:
+        ext0 = S * 15 + C * 6 + (obs.state_idx * C + obs.cam_idx).to(torch.int64) * 6
+    else:
+        ext0 = S * 15 + obs.cam_idx.to(torch.int64) * 6
+    cols = torch.cat([obs.state_idx[:, None] * 15 + col6, ext0[:, None] + col6], dim=1)
     J12 = torch.cat([J_pose, J_ext], dim=-1)  # (O, 2, 12)
     J_full = torch.zeros((O, 2, D), dtype=dtype, device=device).scatter_(
         2, cols[:, None, :].expand(O, 2, 12), J12)
@@ -163,14 +179,32 @@ def evaluate_dense_factors(cfg: WindowConfig, imu_params: ImuParams, problem: Ba
     sp_res = sp_res * spm[:, None]
     cost = cost + 0.5 * torch.sum(sp_res * sp_res)
 
-    # every dense factor's rows in one product
-    rows = torch.cat([
+    rows = [
         factor_rows(J30, cols, D).reshape(-1, D),
         factor_rows(pp_J * ppm[:, None, None], pp.state_idx[:, None] * 15 + col15[:6], D).reshape(-1, D),
         factor_rows(sp_J * spm[:, None, None], sp.state_idx[:, None] * 15 + col15[6:], D).reshape(-1, D),
-    ])
-    H_dd, b_d = normal_eqs_of_rows(rows, torch.cat([imu_res.reshape(-1), pp_res.reshape(-1),
-                                                    sp_res.reshape(-1)]))
+    ]
+    res = [imu_res.reshape(-1), pp_res.reshape(-1), sp_res.reshape(-1)]
+
+    # relative-extrinsics drift links between consecutive per-state T_SC
+    # blocks (the reference's relative-pose errors of variance sigma_c^2 dt)
+    if cfg.extrinsics_per_state:
+        el = problem.ext_links
+        C = cfg.num_cameras
+        el_res, el_J0, el_J1 = relative_pose_error(
+            el.sqrt_info, SE3(r=states.r_SC_t[el.idx_a, el.cam], q=states.q_SC_t[el.idx_a, el.cam]),
+            SE3(r=states.r_SC_t[el.idx_b, el.cam], q=states.q_SC_t[el.idx_b, el.cam]))
+        elm = el.mask.to(dtype)
+        el_res = el_res * elm[:, None]
+        cost = cost + 0.5 * torch.sum(el_res * el_res)
+        base = cfg.num_states * 15 + C * 6
+        cols_el = torch.cat([base + (el.idx_a * C + el.cam)[:, None].to(torch.int64) * 6 + col15[:6],
+                             base + (el.idx_b * C + el.cam)[:, None].to(torch.int64) * 6 + col15[:6]], dim=1)
+        rows.append(factor_rows(torch.cat([el_J0, el_J1], dim=-1) * elm[:, None, None], cols_el, D).reshape(-1, D))
+        res.append(el_res.reshape(-1))
+
+    # every dense factor's rows in one product
+    H_dd, b_d = normal_eqs_of_rows(torch.cat(rows), torch.cat(res))
 
     # marginalization prior
     marg = problem.marg

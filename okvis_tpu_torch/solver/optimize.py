@@ -2,7 +2,8 @@
 dogleg trust-region loop (port of okvis_tpu.solver.optimize).
 
 The landmark blocks are eliminated with batched closed-form 3x3 inverses;
-the reduced dense system (D = S*15 + C*6) is Jacobi-scaled and solved by a
+the reduced dense system (D = S*15 + C*6, + S*C*6 with per-state
+extrinsics) is Jacobi-scaled and solved by a
 Newton-Schulz inverse (default) or Cholesky. The trust-region loop runs a
 fixed cfg.max_iterations iterations as a Python loop whose accept/reject is
 a ``torch.where`` on device values, the carry of the JAX package's
@@ -37,8 +38,9 @@ class SolveDiagnostics(NamedTuple):
 
 
 def _select(accept: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
-    """Field by field: a where accept, else b (accept is a 0-d bool tensor)."""
-    return type(a)(*(torch.where(accept, x, y) for x, y in zip(a, b)))
+    """Field by field: a where accept, else b (accept is a 0-d bool tensor);
+    a field that is None in both stays None."""
+    return type(a)(*(None if x is None else torch.where(accept, x, y) for x, y in zip(a, b)))
 
 
 def _sym3x3_eig_extremes(A: torch.Tensor):
@@ -121,13 +123,17 @@ def dense_dim_mask(cfg: WindowConfig, state_mask: torch.Tensor, sb_mask: torch.T
                    ) -> torch.Tensor:
     """(D,) bool: which dense dims are free variables. Pose dims follow
     state_mask; speed/bias dims also need sb_mask; the shared extrinsics
-    block is free when cfg.estimate_extrinsics."""
+    block is free when cfg.estimate_extrinsics (and not per-state); in
+    per-state mode each state's blocks follow state_mask."""
     S, C = cfg.num_states, cfg.num_cameras
     sm = state_mask[:, None].expand(S, 15)
     if sb_mask is not None:
         sm = torch.cat([sm[:, :6], sm[:, 6:] & sb_mask[:, None]], dim=1)
-    em = torch.full((C * 6,), cfg.estimate_extrinsics, dtype=torch.bool, device=state_mask.device)
-    return torch.cat([sm.reshape(S * 15), em])
+    shared = cfg.estimate_extrinsics and not cfg.extrinsics_per_state
+    parts = [sm.reshape(S * 15), torch.full((C * 6,), shared, dtype=torch.bool, device=state_mask.device)]
+    if cfg.extrinsics_per_state:
+        parts.append(state_mask[:, None].expand(S, C * 6).reshape(S * C * 6))
+    return torch.cat(parts)
 
 
 def solve_normal_eqs(cfg: WindowConfig, eqs: NormalEqs, state_mask: torch.Tensor,
@@ -175,6 +181,11 @@ def apply_update(cfg: WindowConfig, states: WindowStates, delta_d: torch.Tensor,
     new_pose = se3.oplus(SE3(r=states.r_WS, q=states.q_WS), d_states[:, :6] * sm)
     new_ext = se3.oplus(SE3(r=states.r_SC, q=states.q_SC), delta_d[S * 15: S * 15 + C * 6].reshape(C, 6))
     lm_f = lm_mask.to(delta_d.dtype)[:, None]
+    r_SC_t, q_SC_t = states.r_SC_t, states.q_SC_t
+    if cfg.extrinsics_per_state:
+        new_ps = se3.oplus(SE3(r=r_SC_t.reshape(S * C, 3), q=q_SC_t.reshape(S * C, 4)),
+                           delta_d[S * 15 + C * 6:].reshape(S * C, 6))
+        r_SC_t, q_SC_t = new_ps.r.reshape(S, C, 3), new_ps.q.reshape(S, C, 4)
     return WindowStates(
         r_WS=new_pose.r,
         q_WS=new_pose.q,
@@ -182,6 +193,8 @@ def apply_update(cfg: WindowConfig, states: WindowStates, delta_d: torch.Tensor,
         r_SC=new_ext.r,
         q_SC=new_ext.q,
         hp_W=torch.cat([states.hp_W[:, :3] + delta_l * lm_f, states.hp_W[:, 3:]], dim=1),
+        r_SC_t=r_SC_t,
+        q_SC_t=q_SC_t,
     )
 
 

@@ -10,13 +10,13 @@ Minimal-coordinate layout of the dense parameter vector (dimension D):
     state i   : [dp dalpha]      at i*15 .. i*15+6
                 [dv dbg dba]     at i*15+6 .. (i+1)*15
     camera c  : [dp dalpha]_SC   at S*15 + c*6 (online extrinsics, shared)
-    D = S*15 + C*6
+    per-state extrinsics (extrinsics_per_state: one T_SC block a state and
+    camera, the reference's per-state T_SCi blocks):
+    (i, c)    : [dp dalpha]_SC   at S*15 + C*6 + (i*C + c)*6
+    D = S*15 + C*6 (+ S*C*6 when per-state)
 
 Landmarks are L slots of 3 minimal dims (Euclidean perturbation of the
 homogeneous point's first three components).
-
-Not ported: the per-state extrinsics mode (``extrinsics_per_state``) and its
-tables; a WindowConfig that asks for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,9 +49,14 @@ class WindowConfig:
     max_sb_priors: int = 2
     camera_specs: Tuple[CameraSpec, ...] = ()
     estimate_extrinsics: bool = False
-    extrinsics_per_state: bool = False  # not ported: raises
-    sigma_c_relative_translation: float = 0.0
-    sigma_c_relative_orientation: float = 0.0
+    # temporally varying extrinsics: one T_SC block a (state, camera),
+    # consecutive blocks linked by relative-pose drift factors; the shared
+    # C*6 block is then masked out
+    extrinsics_per_state: bool = False
+    sigma_c_relative_translation: float = 0.0  # drift densities [m/sqrt(s)],
+    sigma_c_relative_orientation: float = 0.0  # [rad/sqrt(s)]
+    # absolute extrinsics prior sigmas of the first state's blocks (per-state
+    # mode only; ~0 makes them quasi-constant by a stiff gauge prior)
     sigma_absolute_translation: float = 0.0
     sigma_absolute_orientation: float = 0.0
     max_iterations: int = 10
@@ -65,20 +70,27 @@ class WindowConfig:
     capacity_tiers: bool = True
     tier_divisors: Tuple[int, ...] = (4, 2)
 
-    def __post_init__(self):
-        if self.extrinsics_per_state:
-            raise NotImplementedError(
-                "okvis_tpu_torch: extrinsics_per_state=True (per-state extrinsics) is not ported")
-
     @property
     def dense_dim(self) -> int:
-        return self.num_states * 15 + self.num_cameras * 6
+        d = self.num_states * 15 + self.num_cameras * 6
+        if self.extrinsics_per_state:
+            d += self.num_states * self.num_cameras * 6
+        return d
+
+    @property
+    def ext_link_capacity(self) -> int:
+        """Relative-extrinsics drift links: one per (IMU link, camera)."""
+        return max(1, self.max_imu_links * self.num_cameras)
 
     def state_offset(self, i: int) -> int:
         return i * 15
 
     def ext_offset(self, c: int) -> int:
         return self.num_states * 15 + c * 6
+
+    def ext_ps_offset(self, i: int, c: int) -> int:
+        """Dense offset of state i's camera-c extrinsics block (per-state)."""
+        return self.num_states * 15 + self.num_cameras * 6 + (i * self.num_cameras + c) * 6
 
 
 class WindowStates(NamedTuple):
@@ -90,6 +102,9 @@ class WindowStates(NamedTuple):
     r_SC: torch.Tensor  # (C, 3)
     q_SC: torch.Tensor  # (C, 4)
     hp_W: torch.Tensor  # (L, 4)
+    # per-state extrinsics (only when cfg.extrinsics_per_state)
+    r_SC_t: torch.Tensor = None  # (S, C, 3)
+    q_SC_t: torch.Tensor = None  # (S, C, 4)
 
     def pose(self, i) -> SE3:
         return SE3(r=self.r_WS[i], q=self.q_WS[i])
@@ -116,6 +131,17 @@ class ImuLinks(NamedTuple):
     idx_a: torch.Tensor  # (K,) int32
     idx_b: torch.Tensor  # (K,) int32
     mask: torch.Tensor  # (K,) bool
+
+
+class ExtLinks(NamedTuple):
+    """Padded relative-extrinsics drift factors between consecutive states'
+    per-state T_SC blocks (relative-pose errors of variance sigma_c^2 dt)."""
+
+    idx_a: torch.Tensor  # (Ke,) int32 older state's window slot
+    idx_b: torch.Tensor  # (Ke,) int32 newer state's window slot
+    cam: torch.Tensor  # (Ke,) int32
+    sqrt_info: torch.Tensor  # (Ke, 6, 6)
+    mask: torch.Tensor  # (Ke,) bool
 
 
 class PosePriors(NamedTuple):
@@ -147,6 +173,9 @@ class MargPrior(NamedTuple):
     r_SC_lin: torch.Tensor  # (C, 3)
     q_SC_lin: torch.Tensor  # (C, 4)
     valid: torch.Tensor  # () bool
+    # per-state extrinsics first-estimate points (only when per-state)
+    r_SC_t_lin: torch.Tensor = None  # (S, C, 3)
+    q_SC_t_lin: torch.Tensor = None  # (S, C, 4)
 
 
 class BaProblem(NamedTuple):
@@ -161,6 +190,7 @@ class BaProblem(NamedTuple):
     pose_priors: PosePriors
     sb_priors: SbPriors
     marg: MargPrior
+    ext_links: ExtLinks = None  # only when cfg.extrinsics_per_state
 
 
 def empty_problem(cfg: WindowConfig, dtype: torch.dtype = torch.float64, device=None) -> BaProblem:
@@ -186,6 +216,12 @@ def empty_problem(cfg: WindowConfig, dtype: torch.dtype = torch.float64, device=
 
     hp_W = z(L, 4)
     hp_W[:, 3].fill_(1.0)
+    per_state = cfg.extrinsics_per_state
+    Ke = cfg.ext_link_capacity
+
+    def q_t():
+        return q_of(S * C).reshape(S, C, 4) if per_state else None
+
     pre = PreintegratedImu(
         delta_q=q_of(K),
         C_integral=z(K, 3, 3),
@@ -202,7 +238,8 @@ def empty_problem(cfg: WindowConfig, dtype: torch.dtype = torch.float64, device=
     )
     return BaProblem(
         states=WindowStates(r_WS=z(S, 3), q_WS=q_of(S), speed_and_bias=z(S, 9),
-                            r_SC=z(C, 3), q_SC=q_of(C), hp_W=hp_W),
+                            r_SC=z(C, 3), q_SC=q_of(C), hp_W=hp_W,
+                            r_SC_t=z(S, C, 3) if per_state else None, q_SC_t=q_t()),
         state_mask=z(S, dt=torch.bool),
         sb_mask=torch.ones(S, dtype=torch.bool, device=device),
         lm_mask=z(L, dt=torch.bool),
@@ -215,5 +252,8 @@ def empty_problem(cfg: WindowConfig, dtype: torch.dtype = torch.float64, device=
                            mask=z(Ks, dt=torch.bool)),
         marg=MargPrior(H=z(D, D), b0=z(D), c0=z(), r_WS_lin=z(S, 3), q_WS_lin=q_of(S),
                        sb_lin=z(S, 9), r_SC_lin=z(C, 3), q_SC_lin=q_of(C),
-                       valid=z(dt=torch.bool)),
+                       valid=z(dt=torch.bool), r_SC_t_lin=z(S, C, 3) if per_state else None,
+                       q_SC_t_lin=q_t()),
+        ext_links=ExtLinks(idx_a=idx(Ke), idx_b=idx(Ke, 1), cam=idx(Ke), sqrt_info=z(Ke, 6, 6),
+                           mask=z(Ke, dt=torch.bool)) if per_state else None,
     )
