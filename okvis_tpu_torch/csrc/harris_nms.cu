@@ -297,23 +297,27 @@ __device__ __forceinline__ void window_max(const float (&x)[N + K], float (&out)
   for (int i = 0; i < N; ++i) out[i] = fmaxf(p[i], x[i + K]);
 }
 
-// A tile of the image with its halo into shared memory. Only the row and
-// column just outside the image are read wrapped (the roll that Scharr at
-// the edge sees); products further out are replaced by edge products or
-// read at the clamped column, so those rows and columns are clamped.
-template <class G>
+// A tile of the image with its halo into shared memory. In a block whose
+// halo reaches past the image (kEdge), only the row and column just outside
+// are read wrapped (the roll that Scharr at the edge sees); products further
+// out are replaced by edge products or read at the clamped column, so those
+// rows and columns are clamped. Other blocks read their halo as it lies.
+template <class G, bool kEdge>
 __device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0, int y0, int H, int W, int warp,
                                           int lane) {
-  auto edge_wrap = [](int v, int n) { return v == -1 ? n - 1 : (v == n ? 0 : clampi(v, 0, n - 1)); };
+  auto at = [](int v, int n) {
+    if constexpr (kEdge) return v == -1 ? n - 1 : (v == n ? 0 : clampi(v, 0, n - 1));
+    return v;
+  };
   constexpr int kIR = cdiv(G::IH, kWarps), kIC = cdiv(G::IW, 32);
   const bool last_row = warp + (kIR - 1) * kWarps < G::IH, last_col = lane + 32 * (kIC - 1) < G::IW;
   float a[kIR][kIC];
   int col[kIC];
 #pragma unroll
-  for (int j = 0; j < kIC; ++j) col[j] = edge_wrap(x0 - G::kHalo + lane + 32 * j, W);
+  for (int j = 0; j < kIC; ++j) col[j] = at(x0 - G::kHalo + lane + 32 * j, W);
 #pragma unroll
   for (int i = 0; i < kIR; ++i) {
-    const int row = edge_wrap(y0 - G::kHalo + warp + i * kWarps, H) * W;
+    const int row = at(y0 - G::kHalo + warp + i * kWarps, H) * W;
 #pragma unroll
     for (int j = 0; j < kIC; ++j) {
       if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) a[i][j] = im[row + col[j]];
@@ -326,6 +330,52 @@ __device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0,
       if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) {
         s_img[(warp + i * kWarps) * G::IW + lane + 32 * j] = a[i][j];
       }
+    }
+  }
+}
+
+// B. products and vertical blur: a column segment a thread, lanes on
+//    columns. The thread also copies the mask of its column and rows (score
+//    rows are v rows) to shared memory, 0 outside the image (the window
+//    max's -inf padding): the loads are issued first and land while the
+//    blur runs. A product column or row outside the image repeats the edge
+//    one: the column by reading the image at the clamped column (kClamp),
+//    the row as EDGE says (products_vertical_blur).
+template <class G, int R, int NR, int EDGE, bool kClamp>
+__device__ __forceinline__ void column_walks(const float* s_img, float* s_v, float* s_mask, const float* valid,
+                                             const Taps<R>& taps, int x0, int y0, int H, int W, int tid, int lo,
+                                             int hi, bool top_edge, bool bottom_edge) {
+  constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
+  for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
+    const int px = task % G::PW, seg = task / G::PW;
+    int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
+    if constexpr (EDGE == kEdgeFixed) {
+      vy0 = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+    }
+    const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
+    const bool mask_col = px < G::SW && gx >= 0 && gx < W;
+    float mask[G::kVSeg];
+#pragma unroll
+    for (int k = 0; k < G::kVSeg; ++k) {
+      const bool in = mask_col && gy0 + k >= 0 && gy0 + k < H;
+      mask[k] = in ? valid[(gy0 + k) * W + gx] : 0.f;
+    }
+    const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
+    const float* src = s_img + vy0 * G::IW + px;
+    if constexpr (kClamp) src += clampi(pcol, 0, W - 1) - pcol;
+    float* dst = s_v + vy0 * G::VS + px;
+    if constexpr (EDGE == kEdgeFixed) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeFixed>(
+          src, dst, taps, top_edge && vy0 == lo, bottom_edge && vy0 + G::kVSeg == hi);
+    } else if constexpr (EDGE == kEdgeAny) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
+          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
+    } else {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
+    }
+    if (px < G::SW) {
+#pragma unroll
+      for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
     }
   }
 }
@@ -356,71 +406,53 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   //    indices are computed once a row and once a column, and every load of
   //    a thread is issued before its first store. Only the last row and
   //    column of a thread's grid can fall outside the region.
-  load_tile<G>(im, s_img, x0, y0, H, W, warp, lane);
-  __syncthreads();
-
-  // B. products and vertical blur: a column segment a thread, lanes on
-  //    columns. The thread also copies the mask of its column and rows (score
-  //    rows are v rows) to shared memory, 0 outside the image (the window
-  //    max's -inf padding): the loads are issued first and land while the
-  //    blur runs. A product column or row outside the image repeats the edge
-  //    one: the column by reading the image at the clamped column, the row
-  //    in the EDGE blocks, whose product rows reach past the image.
-  // The layout of the column walks. A block whose product rows stay inside
-  // the image walks segments of kVSeg v rows from its first v row; a block
-  // at the image's top or bottom walks only the v rows inside the image,
-  // [lo, hi), with its first segment starting at image row 0 (top) and its
-  // last ending at row H - 1 (bottom), so the edge's R product rows sit at
-  // fixed places of those segments (kEdgeFixed), and the rows outside get
-  // a zero mask; where that layout cannot tile the block, it walks as
-  // inside blocks do and every segment tests its rows (kEdgeAny).
-  constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
-  const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
-  const int lo = top_edge ? NR - y0 : 0, hi = bottom_edge ? H - y0 + NR : G::VH;
-  int edge = kInside;
-  if (top_edge || bottom_edge) {
-    bool fixed = lo >= 0 && hi <= G::VH && hi - lo >= G::kVSeg;
-    for (int seg = 0; seg < G::kVSegs && fixed; ++seg) {
-      const int a = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
-      fixed = (!top_edge || a == lo || a >= lo + R) && (!bottom_edge || a + G::kVSeg == hi || a + G::kVSeg <= hi - R);
-    }
-    edge = fixed ? kEdgeFixed : kEdgeAny;
-    if (fixed) {  // the mask of the v rows no segment walks: outside the image
-      for (int i = tid; i < (lo + G::VH - hi) * G::SS; i += kThreads) {
-        const int r = i / G::SS;
-        s_mask[(r < lo ? r : hi + r - lo) * G::SS + i % G::SS] = 0.f;
+  // B. products and vertical blur (column_walks). A block whose halo lies
+  //    inside the image loads and walks it as it lies; the others load the
+  //    halo with the edge rules and walk as set out below.
+  const bool interior = x0 >= G::kHalo && y0 >= G::kHalo && x0 + kTileW + G::kHalo <= W &&
+                        y0 + kTileH + G::kHalo <= H;
+  if (interior) {
+    load_tile<G, false>(im, s_img, x0, y0, H, W, warp, lane);
+    __syncthreads();
+    column_walks<G, R, NR, kInside, false>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, 0, 0, false,
+                                           false);
+  } else {
+    load_tile<G, true>(im, s_img, x0, y0, H, W, warp, lane);
+    __syncthreads();
+    // The layout of the column walks. A block whose product rows stay
+    // inside the image walks segments of kVSeg v rows from its first v row;
+    // a block at the image's top or bottom walks only the v rows inside the
+    // image, [lo, hi), with its first segment starting at image row 0 (top)
+    // and its last ending at row H - 1 (bottom), so the edge's R product
+    // rows sit at fixed places of those segments (kEdgeFixed), and the rows
+    // outside get a zero mask; where that layout cannot tile the block, it
+    // walks as inside blocks do and every segment tests its rows (kEdgeAny).
+    const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
+    const int lo = top_edge ? NR - y0 : 0, hi = bottom_edge ? H - y0 + NR : G::VH;
+    int edge = kInside;
+    if (top_edge || bottom_edge) {
+      bool fixed = lo >= 0 && hi <= G::VH && hi - lo >= G::kVSeg;
+      for (int seg = 0; seg < G::kVSegs && fixed; ++seg) {
+        const int a = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+        fixed = (!top_edge || a == lo || a >= lo + R) && (!bottom_edge || a + G::kVSeg == hi || a + G::kVSeg <= hi - R);
+      }
+      edge = fixed ? kEdgeFixed : kEdgeAny;
+      if (fixed) {  // the mask of the v rows no segment walks: outside the image
+        for (int i = tid; i < (lo + G::VH - hi) * G::SS; i += kThreads) {
+          const int r = i / G::SS;
+          s_mask[(r < lo ? r : hi + r - lo) * G::SS + i % G::SS] = 0.f;
+        }
       }
     }
-  }
-  for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
-    const int px = task % G::PW, seg = task / G::PW;
-    int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
-    if (edge == kEdgeFixed) {
-      vy0 = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
-    }
-    const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
-    const bool mask_col = px < G::SW && gx >= 0 && gx < W;
-    float mask[G::kVSeg];
-#pragma unroll
-    for (int k = 0; k < G::kVSeg; ++k) {
-      const bool in = mask_col && gy0 + k >= 0 && gy0 + k < H;
-      mask[k] = in ? valid[(gy0 + k) * W + gx] : 0.f;
-    }
-    const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
-    const float* src = s_img + vy0 * G::IW + px + (clampi(pcol, 0, W - 1) - pcol);
-    float* dst = s_v + vy0 * G::VS + px;
     if (edge == kInside) {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
+      column_walks<G, R, NR, kInside, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi, top_edge,
+                                            bottom_edge);
     } else if (edge == kEdgeFixed) {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeFixed>(
-          src, dst, taps, top_edge && vy0 == lo, bottom_edge && vy0 + G::kVSeg == hi);
+      column_walks<G, R, NR, kEdgeFixed, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi,
+                                               top_edge, bottom_edge);
     } else {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
-          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
-    }
-    if (px < G::SW) {
-#pragma unroll
-      for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
+      column_walks<G, R, NR, kEdgeAny, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi, top_edge,
+                                             bottom_edge);
     }
   }
   __syncthreads();
