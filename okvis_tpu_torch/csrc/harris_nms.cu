@@ -187,23 +187,16 @@ __device__ __forceinline__ void scharr_products(const float* im, float& pxx, flo
 // the first output of the xx plane. The gradients are the plain version's
 // expressions; a row's difference r - l and its 3(r - l) serve the three
 // products that read the row, computed once with the same roundings. With
-// The blur's edge padding (a product row outside the image takes the
-// nearest edge row's product): kEdgeFixed for a segment that starts at image
-// row 0 (`top` set: its first R product rows lie above) or ends at row H - 1
-// (`bot` set: its last R lie below), kEdgeAny for any segment, `top` and
-// `bot` then being the segment's first and last product rows inside.
-enum { kInside = 0, kEdgeFixed = 1, kEdgeAny = 2 };
-
-template <int R, int N, int IW, int VS, int VP, int EDGE>
+// kEdge, the blur's edge padding: product rows before `top` take the
+// product of row `top`, those after `bot` that of row `bot` (the segment's
+// first and last product rows inside the image).
+template <int R, int N, int IW, int VS, int VP, bool kEdge>
 __device__ __forceinline__ void products_vertical_blur(const float* im, float* v, const Taps<R>& taps,
                                                        int top, int bot) {
   float txx = 0.f, tyy = 0.f, txy = 0.f, bxx = 0.f, byy = 0.f, bxy = 0.f;
-  if constexpr (EDGE == kEdgeAny) {
+  if constexpr (kEdge) {
     scharr_products<IW>(im + top * IW, txx, tyy, txy);
     scharr_products<IW>(im + bot * IW, bxx, byy, bxy);
-  }
-  if constexpr (EDGE == kEdgeFixed) {
-    if (top) scharr_products<IW>(im + R * IW, txx, tyy, txy);
   }
   float l0 = im[0], m0 = im[1], r0 = im[2];
   float l1 = im[IW], m1 = im[IW + 1], r1 = im[IW + 2];
@@ -222,17 +215,12 @@ __device__ __forceinline__ void products_vertical_blur(const float* im, float* v
                   __fmul_rn(3.f, __fsub_rn(l2, l0))),
         0.03125f);
     float pxx = __fmul_rn(gx, gx), pyy = __fmul_rn(gy, gy), pxy = __fmul_rn(gx, gy);
-    if constexpr (EDGE == kEdgeAny) {
+    if constexpr (kEdge) {
       if (j < top) {
         pxx = txx, pyy = tyy, pxy = txy;
       } else if (j > bot) {
         pxx = bxx, pyy = byy, pxy = bxy;
       }
-    }
-    if constexpr (EDGE == kEdgeFixed) {
-      if (j < R && top) pxx = txx, pyy = tyy, pxy = txy;
-      if (j == N - 1 + R) bxx = pxx, byy = pyy, bxy = pxy;  // row H - 1 when `bot`
-      if (j >= N + R && bot) pxx = bxx, pyy = byy, pxy = bxy;
     }
 #pragma unroll
     for (int o = 0; o < N; ++o) {
@@ -338,20 +326,16 @@ __device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0,
 //    columns. The thread also copies the mask of its column and rows (score
 //    rows are v rows) to shared memory, 0 outside the image (the window
 //    max's -inf padding): the loads are issued first and land while the
-//    blur runs. A product column or row outside the image repeats the edge
-//    one: the column by reading the image at the clamped column (kClamp),
-//    the row as EDGE says (products_vertical_blur).
-template <class G, int R, int NR, int EDGE, bool kClamp>
+//    blur runs. In a kEdge block, a product column or row outside the image
+//    repeats the edge one: the column by reading the image at the clamped
+//    column, the row in products_vertical_blur.
+template <class G, int R, int NR, bool kEdge>
 __device__ __forceinline__ void column_walks(const float* s_img, float* s_v, float* s_mask, const float* valid,
-                                             const Taps<R>& taps, int x0, int y0, int H, int W, int tid, int lo,
-                                             int hi, bool top_edge, bool bottom_edge) {
+                                             const Taps<R>& taps, int x0, int y0, int H, int W, int tid) {
   constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
   for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
     const int px = task % G::PW, seg = task / G::PW;
-    int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
-    if constexpr (EDGE == kEdgeFixed) {
-      vy0 = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
-    }
+    const int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
     const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
     const bool mask_col = px < G::SW && gx >= 0 && gx < W;
     float mask[G::kVSeg];
@@ -362,17 +346,9 @@ __device__ __forceinline__ void column_walks(const float* s_img, float* s_v, flo
     }
     const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
     const float* src = s_img + vy0 * G::IW + px;
-    if constexpr (kClamp) src += clampi(pcol, 0, W - 1) - pcol;
-    float* dst = s_v + vy0 * G::VS + px;
-    if constexpr (EDGE == kEdgeFixed) {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeFixed>(
-          src, dst, taps, top_edge && vy0 == lo, bottom_edge && vy0 + G::kVSeg == hi);
-    } else if constexpr (EDGE == kEdgeAny) {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
-          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
-    } else {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
-    }
+    if constexpr (kEdge) src += clampi(pcol, 0, W - 1) - pcol;
+    products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdge>(
+        src, s_v + vy0 * G::VS + px, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
     if (px < G::SW) {
 #pragma unroll
       for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
@@ -407,53 +383,17 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   //    a thread is issued before its first store. Only the last row and
   //    column of a thread's grid can fall outside the region.
   // B. products and vertical blur (column_walks). A block whose halo lies
-  //    inside the image loads and walks it as it lies; the others load the
-  //    halo with the edge rules and walk as set out below.
-  const bool interior = x0 >= G::kHalo && y0 >= G::kHalo && x0 + kTileW + G::kHalo <= W &&
-                        y0 + kTileH + G::kHalo <= H;
-  if (interior) {
-    load_tile<G, false>(im, s_img, x0, y0, H, W, warp, lane);
-    __syncthreads();
-    column_walks<G, R, NR, kInside, false>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, 0, 0, false,
-                                           false);
-  } else {
+  //    inside the image loads and walks it as it lies; the others load it
+  //    with the edge rules and replace the products outside the image.
+  const bool edge = x0 < G::kHalo || y0 < G::kHalo || x0 + kTileW + G::kHalo > W || y0 + kTileH + G::kHalo > H;
+  if (edge) {
     load_tile<G, true>(im, s_img, x0, y0, H, W, warp, lane);
     __syncthreads();
-    // The layout of the column walks. A block whose product rows stay
-    // inside the image walks segments of kVSeg v rows from its first v row;
-    // a block at the image's top or bottom walks only the v rows inside the
-    // image, [lo, hi), with its first segment starting at image row 0 (top)
-    // and its last ending at row H - 1 (bottom), so the edge's R product
-    // rows sit at fixed places of those segments (kEdgeFixed), and the rows
-    // outside get a zero mask; where that layout cannot tile the block, it
-    // walks as inside blocks do and every segment tests its rows (kEdgeAny).
-    const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
-    const int lo = top_edge ? NR - y0 : 0, hi = bottom_edge ? H - y0 + NR : G::VH;
-    int edge = kInside;
-    if (top_edge || bottom_edge) {
-      bool fixed = lo >= 0 && hi <= G::VH && hi - lo >= G::kVSeg;
-      for (int seg = 0; seg < G::kVSegs && fixed; ++seg) {
-        const int a = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
-        fixed = (!top_edge || a == lo || a >= lo + R) && (!bottom_edge || a + G::kVSeg == hi || a + G::kVSeg <= hi - R);
-      }
-      edge = fixed ? kEdgeFixed : kEdgeAny;
-      if (fixed) {  // the mask of the v rows no segment walks: outside the image
-        for (int i = tid; i < (lo + G::VH - hi) * G::SS; i += kThreads) {
-          const int r = i / G::SS;
-          s_mask[(r < lo ? r : hi + r - lo) * G::SS + i % G::SS] = 0.f;
-        }
-      }
-    }
-    if (edge == kInside) {
-      column_walks<G, R, NR, kInside, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi, top_edge,
-                                            bottom_edge);
-    } else if (edge == kEdgeFixed) {
-      column_walks<G, R, NR, kEdgeFixed, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi,
-                                               top_edge, bottom_edge);
-    } else {
-      column_walks<G, R, NR, kEdgeAny, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid, lo, hi, top_edge,
-                                             bottom_edge);
-    }
+    column_walks<G, R, NR, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid);
+  } else {
+    load_tile<G, false>(im, s_img, x0, y0, H, W, warp, lane);
+    __syncthreads();
+    column_walks<G, R, NR, false>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid);
   }
   __syncthreads();
 
