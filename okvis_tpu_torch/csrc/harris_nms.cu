@@ -187,16 +187,23 @@ __device__ __forceinline__ void scharr_products(const float* im, float& pxx, flo
 // the first output of the xx plane. The gradients are the plain version's
 // expressions; a row's difference r - l and its 3(r - l) serve the three
 // products that read the row, computed once with the same roundings. With
-// kEdge, the blur's edge padding: product rows before `top` take the
-// product of row `top`, those after `bot` that of row `bot` (the segment's
-// first and last product rows inside the image).
-template <int R, int N, int IW, int VS, int VP, bool kEdge>
+// The blur's edge padding (a product row outside the image takes the
+// nearest edge row's product): kEdgeFixed for a segment that starts at image
+// row 0 (`top` set: its first R product rows lie above) or ends at row H - 1
+// (`bot` set: its last R lie below), kEdgeAny for any segment, `top` and
+// `bot` then being the segment's first and last product rows inside.
+enum { kInside = 0, kEdgeFixed = 1, kEdgeAny = 2 };
+
+template <int R, int N, int IW, int VS, int VP, int EDGE>
 __device__ __forceinline__ void products_vertical_blur(const float* im, float* v, const Taps<R>& taps,
                                                        int top, int bot) {
   float txx = 0.f, tyy = 0.f, txy = 0.f, bxx = 0.f, byy = 0.f, bxy = 0.f;
-  if constexpr (kEdge) {
+  if constexpr (EDGE == kEdgeAny) {
     scharr_products<IW>(im + top * IW, txx, tyy, txy);
     scharr_products<IW>(im + bot * IW, bxx, byy, bxy);
+  }
+  if constexpr (EDGE == kEdgeFixed) {
+    if (top) scharr_products<IW>(im + R * IW, txx, tyy, txy);
   }
   float l0 = im[0], m0 = im[1], r0 = im[2];
   float l1 = im[IW], m1 = im[IW + 1], r1 = im[IW + 2];
@@ -215,12 +222,17 @@ __device__ __forceinline__ void products_vertical_blur(const float* im, float* v
                   __fmul_rn(3.f, __fsub_rn(l2, l0))),
         0.03125f);
     float pxx = __fmul_rn(gx, gx), pyy = __fmul_rn(gy, gy), pxy = __fmul_rn(gx, gy);
-    if constexpr (kEdge) {
+    if constexpr (EDGE == kEdgeAny) {
       if (j < top) {
         pxx = txx, pyy = tyy, pxy = txy;
       } else if (j > bot) {
         pxx = bxx, pyy = byy, pxy = bxy;
       }
+    }
+    if constexpr (EDGE == kEdgeFixed) {
+      if (j < R && top) pxx = txx, pyy = tyy, pxy = txy;
+      if (j == N - 1 + R) bxx = pxx, byy = pyy, bxy = pxy;  // row H - 1 when `bot`
+      if (j >= N + R && bot) pxx = bxx, pyy = byy, pxy = bxy;
     }
 #pragma unroll
     for (int o = 0; o < N; ++o) {
@@ -285,27 +297,23 @@ __device__ __forceinline__ void window_max(const float (&x)[N + K], float (&out)
   for (int i = 0; i < N; ++i) out[i] = fmaxf(p[i], x[i + K]);
 }
 
-// A tile of the image with its halo into shared memory. In a block whose
-// halo reaches past the image (kEdge), only the row and column just outside
-// are read wrapped (the roll that Scharr at the edge sees); products further
-// out are replaced by edge products or read at the clamped column, so those
-// rows and columns are clamped. Other blocks read their halo as it lies.
-template <class G, bool kEdge>
+// A tile of the image with its halo into shared memory. Only the row and
+// column just outside the image are read wrapped (the roll that Scharr at
+// the edge sees); products further out are replaced by edge products or
+// read at the clamped column, so those rows and columns are clamped.
+template <class G>
 __device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0, int y0, int H, int W, int warp,
                                           int lane) {
-  auto at = [](int v, int n) {
-    if constexpr (kEdge) return v == -1 ? n - 1 : (v == n ? 0 : clampi(v, 0, n - 1));
-    return v;
-  };
+  auto edge_wrap = [](int v, int n) { return v == -1 ? n - 1 : (v == n ? 0 : clampi(v, 0, n - 1)); };
   constexpr int kIR = cdiv(G::IH, kWarps), kIC = cdiv(G::IW, 32);
   const bool last_row = warp + (kIR - 1) * kWarps < G::IH, last_col = lane + 32 * (kIC - 1) < G::IW;
   float a[kIR][kIC];
   int col[kIC];
 #pragma unroll
-  for (int j = 0; j < kIC; ++j) col[j] = at(x0 - G::kHalo + lane + 32 * j, W);
+  for (int j = 0; j < kIC; ++j) col[j] = edge_wrap(x0 - G::kHalo + lane + 32 * j, W);
 #pragma unroll
   for (int i = 0; i < kIR; ++i) {
-    const int row = at(y0 - G::kHalo + warp + i * kWarps, H) * W;
+    const int row = edge_wrap(y0 - G::kHalo + warp + i * kWarps, H) * W;
 #pragma unroll
     for (int j = 0; j < kIC; ++j) {
       if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) a[i][j] = im[row + col[j]];
@@ -318,40 +326,6 @@ __device__ __forceinline__ void load_tile(const float* im, float* s_img, int x0,
       if ((i < kIR - 1 || last_row) && (j < kIC - 1 || last_col)) {
         s_img[(warp + i * kWarps) * G::IW + lane + 32 * j] = a[i][j];
       }
-    }
-  }
-}
-
-// B. products and vertical blur: a column segment a thread, lanes on
-//    columns. The thread also copies the mask of its column and rows (score
-//    rows are v rows) to shared memory, 0 outside the image (the window
-//    max's -inf padding): the loads are issued first and land while the
-//    blur runs. In a kEdge block, a product column or row outside the image
-//    repeats the edge one: the column by reading the image at the clamped
-//    column, the row in products_vertical_blur.
-template <class G, int R, int NR, bool kEdge>
-__device__ __forceinline__ void column_walks(const float* s_img, float* s_v, float* s_mask, const float* valid,
-                                             const Taps<R>& taps, int x0, int y0, int H, int W, int tid) {
-  constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
-  for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
-    const int px = task % G::PW, seg = task / G::PW;
-    const int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
-    const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
-    const bool mask_col = px < G::SW && gx >= 0 && gx < W;
-    float mask[G::kVSeg];
-#pragma unroll
-    for (int k = 0; k < G::kVSeg; ++k) {
-      const bool in = mask_col && gy0 + k >= 0 && gy0 + k < H;
-      mask[k] = in ? valid[(gy0 + k) * W + gx] : 0.f;
-    }
-    const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
-    const float* src = s_img + vy0 * G::IW + px;
-    if constexpr (kEdge) src += clampi(pcol, 0, W - 1) - pcol;
-    products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdge>(
-        src, s_v + vy0 * G::VS + px, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
-    if (px < G::SW) {
-#pragma unroll
-      for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
     }
   }
 }
@@ -382,18 +356,51 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   //    indices are computed once a row and once a column, and every load of
   //    a thread is issued before its first store. Only the last row and
   //    column of a thread's grid can fall outside the region.
-  // B. products and vertical blur (column_walks). A block whose halo lies
-  //    inside the image loads and walks it as it lies; the others load it
-  //    with the edge rules and replace the products outside the image.
-  const bool edge = x0 < G::kHalo || y0 < G::kHalo || x0 + kTileW + G::kHalo > W || y0 + kTileH + G::kHalo > H;
-  if (edge) {
-    load_tile<G, true>(im, s_img, x0, y0, H, W, warp, lane);
-    __syncthreads();
-    column_walks<G, R, NR, true>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid);
-  } else {
-    load_tile<G, false>(im, s_img, x0, y0, H, W, warp, lane);
-    __syncthreads();
-    column_walks<G, R, NR, false>(s_img, s_v, s_mask, valid, taps, x0, y0, H, W, tid);
+  load_tile<G>(im, s_img, x0, y0, H, W, warp, lane);
+  __syncthreads();
+
+  // B. products and vertical blur: a column segment a thread, lanes on
+  //    columns. The thread also copies the mask of its column and rows (score
+  //    rows are v rows) to shared memory, 0 outside the image (the window
+  //    max's -inf padding): the loads are issued first and land while the
+  //    blur runs. A product column or row outside the image repeats the edge
+  //    one: the column by reading the image at the clamped column, the row
+  //    in the EDGE blocks, whose product rows reach past the image.
+  // The layout of the column walks. A block whose product rows stay inside
+  // the image walks segments of kVSeg v rows from its first v row; a block
+  // at the image's top or bottom walks only the v rows inside the image,
+  // [lo, hi), with its first segment starting at image row 0 (top) and its
+  // last ending at row H - 1 (bottom), so the edge's R product rows sit at
+  // fixed places of those segments (kEdgeFixed), and the rows outside get
+  // a zero mask; where that layout cannot tile the block, it walks as
+  // inside blocks do and every segment tests its rows (kEdgeAny).
+  constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
+  const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
+  const int edge = top_edge || bottom_edge ? kEdgeAny : kInside;
+  for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
+    const int px = task % G::PW, seg = task / G::PW;
+    int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
+    const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
+    const bool mask_col = px < G::SW && gx >= 0 && gx < W;
+    float mask[G::kVSeg];
+#pragma unroll
+    for (int k = 0; k < G::kVSeg; ++k) {
+      const bool in = mask_col && gy0 + k >= 0 && gy0 + k < H;
+      mask[k] = in ? valid[(gy0 + k) * W + gx] : 0.f;
+    }
+    const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
+    const float* src = s_img + vy0 * G::IW + px + (clampi(pcol, 0, W - 1) - pcol);
+    float* dst = s_v + vy0 * G::VS + px;
+    if (edge == kInside) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
+    } else {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
+          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
+    }
+    if (px < G::SW) {
+#pragma unroll
+      for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
+    }
   }
   __syncthreads();
 
