@@ -375,8 +375,6 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   // a zero mask; where that layout cannot tile the block, it walks as
   // inside blocks do and every segment tests its rows (kEdgeAny).
   constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
-  const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
-  const int edge = top_edge || bottom_edge ? kEdgeAny : kInside;
   for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
     const int px = task % G::PW, seg = task / G::PW;
     int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
@@ -391,12 +389,8 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
     const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
     const float* src = s_img + vy0 * G::IW + px + (clampi(pcol, 0, W - 1) - pcol);
     float* dst = s_v + vy0 * G::VS + px;
-    if (edge == kInside) {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
-    } else {
-      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
-          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
-    }
+    products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
+        src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
     if (px < G::SW) {
 #pragma unroll
       for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
