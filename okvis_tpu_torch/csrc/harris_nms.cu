@@ -68,7 +68,10 @@
 // walk (any other layout tests every row, kEdgeAny). The two agree bit for
 // bit over the whole image, which the pyramid's octaves need: their
 // selection borders come as close as 5 px to the edge. This costs about
-// 0.6 us at (2, 480, 752) against the edge-blind kernel (PERF.md). Outside
+// 0.6 us at (2, 480, 752) against the edge-blind kernel (PERF.md); walking
+// every edge block as kEdgeAny, or loading and walking the blocks whose halo
+// lies inside the image by a second, rule-free path, measured slower there
+// (scripts/torch_harris_compare.py, PERF.md). Outside
 // the image the window max sees -inf. Ties keep >=, so equal maxima on a
 // plateau all survive, as in the Pallas kernel.
 #include <cuda_runtime.h>
@@ -375,9 +378,29 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
   // a zero mask; where that layout cannot tile the block, it walks as
   // inside blocks do and every segment tests its rows (kEdgeAny).
   constexpr int kPRows = G::kVSeg + 2 * R;  // product rows of a segment
+  const bool top_edge = y0 - NR - R < 0, bottom_edge = y0 + kTileH + NR + R > H;
+  const int lo = top_edge ? NR - y0 : 0, hi = bottom_edge ? H - y0 + NR : G::VH;
+  int edge = kInside;
+  if (top_edge || bottom_edge) {
+    bool fixed = lo >= 0 && hi <= G::VH && hi - lo >= G::kVSeg;
+    for (int seg = 0; seg < G::kVSegs && fixed; ++seg) {
+      const int a = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+      fixed = (!top_edge || a == lo || a >= lo + R) && (!bottom_edge || a + G::kVSeg == hi || a + G::kVSeg <= hi - R);
+    }
+    edge = fixed ? kEdgeFixed : kEdgeAny;
+    if (fixed) {  // the mask of the v rows no segment walks: outside the image
+      for (int i = tid; i < (lo + G::VH - hi) * G::SS; i += kThreads) {
+        const int r = i / G::SS;
+        s_mask[(r < lo ? r : hi + r - lo) * G::SS + i % G::SS] = 0.f;
+      }
+    }
+  }
   for (int task = tid; task < G::PW * G::kVSegs; task += kThreads) {
     const int px = task % G::PW, seg = task / G::PW;
     int vy0 = min(seg * G::kVSeg, G::VH - G::kVSeg);  // the last segment overlaps
+    if (edge == kEdgeFixed) {
+      vy0 = bottom_edge ? max(lo, hi - (G::kVSegs - seg) * G::kVSeg) : min(lo + seg * G::kVSeg, hi - G::kVSeg);
+    }
     const int gx = x0 - NR + px, gy0 = y0 - NR + vy0;
     const bool mask_col = px < G::SW && gx >= 0 && gx < W;
     float mask[G::kVSeg];
@@ -389,8 +412,15 @@ harris_nms_kernel(const float* __restrict__ img, const float* __restrict__ inb,
     const int pcol = x0 - NR - R + px, prow = y0 - NR - R + vy0;  // the first product's pixel
     const float* src = s_img + vy0 * G::IW + px + (clampi(pcol, 0, W - 1) - pcol);
     float* dst = s_v + vy0 * G::VS + px;
-    products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
-        src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
+    if (edge == kInside) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kInside>(src, dst, taps, 0, 0);
+    } else if (edge == kEdgeFixed) {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeFixed>(
+          src, dst, taps, top_edge && vy0 == lo, bottom_edge && vy0 + G::kVSeg == hi);
+    } else {
+      products_vertical_blur<R, G::kVSeg, G::IW, G::VS, G::VP, kEdgeAny>(
+          src, dst, taps, clampi(-prow, 0, kPRows - 1), clampi(H - 1 - prow, 0, kPRows - 1));
+    }
     if (px < G::SW) {
 #pragma unroll
       for (int k = 0; k < G::kVSeg; ++k) s_mask[(vy0 + k) * G::SS + px] = mask[k];
