@@ -44,7 +44,7 @@ one CUDA card and check them.
 11. runs the Estimator's add_states / optimize / apply_marginalization_strategy
    loop over 39 frames of the long-run scenario (ESTIMATOR_SCENARIO) at its
    default window (S = 9, L = 512, O = 2048, K = 8, 10 iterations) in
-   float32 on the card, LM + Newton-Schulz, twice;
+   float32 on the card, for LM + Newton-Schulz (twice) and LM + Cholesky;
    prints every frame's capacity tier, holds each run to the gates of
    ESTIMATOR_GATES (bounded window, the last 10 frames' errors, the final
    window against the port's float64 CPU run of the same variant) and the
@@ -90,7 +90,8 @@ one CUDA card and check them.
    equality, the per-state run checkpointed and restored; holds each to
    MODES_GATES (the JAX tests' ATE bounds, the JAX package's float32 CPU
    run of the same frames, JAX_MODES, the calibration error falling), both
-   kernels on every mode's path (Harris once an octave a frame), the
+   kernels on every mode's path (Harris once an octave a frame, counted
+   at each octave's shape from a record of every launch), the
    Harris kernel to its plain version at the three pyramid levels with the
    mask over the whole image and the Hamming kernel at the mono
    association batch; prints `modes_frames` and `modes` lines a mode and
@@ -104,6 +105,7 @@ ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -171,15 +173,15 @@ ESTIMATOR_SCENARIO = dict(duration=4.0, traj_seed=3, motion_scale=0.6, n_landmar
                           radius=(3.0, 9.0), n_frames=39, seed=11, pixel_noise=0.6)
 # Gates per variant, written before the first card run: the last 10 frames'
 # newest-state errors (m, rad) and the final window's poses against the
-# port's float64 CPU run of the same variant (m, rad). LM + Newton-Schulz
+# port's float64 CPU run of the same variant (m, rad). LM + Cholesky takes
+# the reference gates (tests/test_estimator.py:103-104). LM + Newton-Schulz
 # takes about three times what the JAX package reaches in float32 on the CPU
-# (scripts/jax_float32_estimator.py: 0.0161 m, 0.0026 rad). Against
-# float64: the port's float32 CPU runs end within 0.009 m and 3.5e-3 rad of
-# it. (The LM + Cholesky variant, which the back-end phase still runs on
-# its window, left this phase to keep the script inside half its time
-# limit once the modes phase came.)
+# (scripts/jax_float32_estimator.py: 0.0161 m, 0.0026 rad; LM + Cholesky
+# 0.0165 m, 0.0044 rad). Against float64: the port's float32 CPU runs end
+# within 0.009 m and 3.5e-3 rad of it.
 ESTIMATOR_GATES = dict(
     optimize=dict(last10=(0.05, 1e-2), f64=(0.03, 1e-2)),
+    optimize_cholesky=dict(last10=(0.1, 2e-2), f64=(0.03, 1e-2)),
 )
 ESTIMATOR_PROFILE_FRAMES = (20, 25)  # frame ids [a, b) under torch.profiler
 
@@ -1068,25 +1070,33 @@ def check_estimator() -> dict:
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
 
+    t0 = time.perf_counter()
     frames, init = estimator_frames()
+    print(f"estimator_scene_seconds {time.perf_counter() - t0:.2f}")
     harris_suppressed_cuda.launches = 0
     hamming_matrix_cuda.launches = 0
-    runs = {}
-    # The float64 CPU reference runs in a worker process while the card
+    runs, seconds = {}, {}
+    # The float64 CPU references run in worker processes while the card
     # repeats LM + Newton-Schulz (a run whose times are not reported); the
-    # timed card run has the host to itself.
+    # timed card runs have the host to themselves.
+    t0 = time.perf_counter()
     runs["optimize"] = run_estimator("optimize", "cuda", torch.float32, frames, init, profile=True)
+    seconds["optimize"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=len(ESTIMATOR_GATES), mp_context=multiprocessing.get_context("spawn")) as pool:
         refs = {v: pool.submit(estimator_reference, v) for v in ESTIMATOR_GATES}
         rerun = estimator_window(run_estimator("optimize", "cuda", torch.float32, frames, init)[0])
         refs = {v: f.result() for v, f in refs.items()}
     print(f"estimator_reference_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    runs["optimize_cholesky"] = run_estimator("optimize_cholesky", "cuda", torch.float32, frames, init, profile=True)
+    seconds["optimize_cholesky"] = time.perf_counter() - t0
     for variant, gates in ESTIMATOR_GATES.items():
         est, rows, summary = runs[variant]
         print("estimator_frames", json.dumps(dict(variant=variant, frames=[
             {k: r[k] for k in ("frame", "tier", "frames", "links", "position", "orientation")} for r in rows])))
         line = estimator_line(variant, rows, summary)
+        line["seconds"] = seconds[variant]
         win, ref = estimator_window(est), refs[variant]
         if not isinstance(est.marg_H, torch.Tensor) or est.marg_H.device.type != "cuda":
             raise SmokeError(f"{variant}: the marginal prior left the card")
@@ -1479,9 +1489,9 @@ def runtime_params():
     return p
 
 
-def runtime_checkpoint(vio, directory: str, params=None) -> dict:
-    """save_checkpoint, then load_checkpoint into a fresh ThreadedVio (of
-    `params`, else runtime_params) on the same device and rig: whether each
+def runtime_checkpoint(vio, directory: str, params) -> dict:
+    """save_checkpoint, then load_checkpoint into a fresh ThreadedVio of
+    `params` on the same device and rig: whether each
     field of the restored window (convert.estimator_to_numpy) equals the
     saved one exactly, and where the restored marginal prior lives."""
     import torch
@@ -1491,8 +1501,7 @@ def runtime_checkpoint(vio, directory: str, params=None) -> dict:
 
     path = f"{directory}/vio.ckpt"
     vio.save_checkpoint(path)
-    fresh = ThreadedVio(params or runtime_params(), rig=vio.rig, blocking=True, dtype=torch.float32,
-                        device=vio.device)
+    fresh = ThreadedVio(params, rig=vio.rig, blocking=True, dtype=torch.float32, device=vio.device)
     try:
         fresh.load_checkpoint(path)
         a, b = convert.estimator_to_numpy(vio.estimator), convert.estimator_to_numpy(fresh.estimator)
@@ -1515,28 +1524,31 @@ def same_values(a, b) -> bool:
     return a == b
 
 
-def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=None):
-    """The vio scene through the port's ThreadedVio in blocking mode in
-    float32 (runtime_params, the EuRoC rig with overlaps), fed as
+def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, profile: bool = False,
+                checkpoint_dir=None):
+    """The scene's first `n_frames` frames (all by default) through the
+    port's ThreadedVio in blocking mode in float32, fed as
     tests/test_vision_e2e.py feeds, with timestamps rounded to the ns
     (utils.time.ns_from_sec): the IMU up to 25 ms past a frame (each
-    add_imu_measurement timed on the host: it propagates and publishes the
-    state synchronously), both images, wait_idle. A propagated-state
-    callback, a transferred-landmarks callback and a state CSV file are set.
-    Per frame: the host ms from the first add_image to wait_idle's return,
-    syncstats, the kernels' launches, the association-shape Hamming
-    launches, and the keypoint-to-landmark ids. With `profile`, the frames of
-    RUNTIME_PROFILE_FRAMES run under torch.profiler; with `checkpoint_dir`,
-    runtime_checkpoint runs after RUNTIME_CHECKPOINT_AFTER frames. Returns a
-    namespace of the run's records."""
+    add_imu_measurement timed on the host: in the runtime it propagates and
+    publishes the state synchronously), the images, wait_idle. `mode` is
+    "runtime" (runtime_params, the EuRoC rig with overlaps, a
+    propagated-state callback, a transferred-landmarks callback and a state
+    CSV file) or one of MODES (modes_params, modes_rig, pyramid's detection
+    mask; no callbacks, no CSV). Per frame: the host ms from the first
+    add_image to wait_idle's return, syncstats, the kernels' launches, the
+    association-shape Hamming launches, and the keypoint-to-landmark ids;
+    over the run, the (C, H, W) of every Harris launch, the association
+    batches' shapes and the last batch's arguments. With `profile`, the
+    frames of RUNTIME_PROFILE_FRAMES run under torch.profiler; with
+    `checkpoint_dir`, runtime_checkpoint runs after RUNTIME_CHECKPOINT_AFTER
+    frames. Returns a namespace of the run's records."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity
 
-    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
-    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
-    from okvis_tpu_torch.frontend import kernels
+    from okvis_tpu_torch.frontend import detection, kernels
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
     from okvis_tpu_torch.pipeline import ThreadedVio
@@ -1545,16 +1557,20 @@ def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=
     from okvis_tpu_torch.utils.time import ns_from_sec
     from okvis_tpu_torch.utils.timing import Timing
 
-    specs, T_SC, intr = euroc_stereo_rig(device=dev)
-    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
-    rig.compute_overlaps()
+    rig = modes_rig(mode, dev)
+    params = modes_params(mode)
     IdProvider.reset()
     Timing.reset()
-    vio = ThreadedVio(runtime_params(), rig=rig, blocking=True, dtype=torch.float32, device=dev)
+    vio = ThreadedVio(params, rig=rig, blocking=True, dtype=torch.float32, device=dev)
+    if mode == "pyramid":
+        vio.frontend.cfg.detection_masks = (modes_mask(),) * rig.num_cameras
     out = SimpleNamespace(vio=vio, rows=[], published=[], transferred=[], mfs=[], checkpoint=None, profile=None,
-                          stages=None, csv_rows=None)
-    vio.propagated_state_callback = lambda t, T, sb: out.published.append((t, T.r.numpy().copy()))
-    vio.transferred_landmarks_callback = lambda t, lms: out.transferred.append((t, sorted(lms)))
+                          stages=None, csv_rows=None, harris_shapes=[], assoc_shapes=set(), assoc_args=None,
+                          calibration=None)
+    callbacks = mode == "runtime"
+    if callbacks:
+        vio.propagated_state_callback = lambda t, T, sb: out.published.append((t, T.r.numpy().copy()))
+        vio.transferred_landmarks_callback = lambda t, lms: out.transferred.append((t, sorted(lms)))
     assoc = vio.frontend.data_association_and_initialization
 
     def record(est, T_WS, mf, sb_prop=None):
@@ -1563,14 +1579,24 @@ def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=
 
     vio.frontend.data_association_and_initialization = record
     shapes = []
-    orig_mdm = kernels.masked_distance_matrix
+    orig_mdm, orig_harris = kernels.masked_distance_matrix, detection.harris_suppressed
 
     def mdm(*args):
         res = orig_mdm(*args)
         shapes.append(res.dim() == 3)  # the association round's (P·C, K, K) batch
+        if res.dim() == 3:
+            out.assoc_args = args
+            out.assoc_shapes.add(tuple(res.shape))
+        return res
+
+    def harris(img, *args, **kw):
+        res = orig_harris(img, *args, **kw)
+        if img.device.type == "cuda" and img.numel():  # routed to the kernel, which launched once
+            out.harris_shapes.append(tuple(img.shape))
         return res
 
     kernels.masked_distance_matrix = mdm
+    detection.harris_suppressed = harris
     traj = scene.traj
     # the runtime's clock: seconds rounded to the nearest ns (the IMU
     # samples are multiples of 5 ms), the clock vio_imu_slice gives the vio
@@ -1579,11 +1605,13 @@ def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     a, b = RUNTIME_PROFILE_FRAMES
     imu_i, prof, n_opt = 0, None, 0
+    frames = list(zip(scene.times, scene.images))[:n_frames]
     tmp = tempfile.TemporaryDirectory()
     csv = f"{tmp.name}/state.csv"
     try:
-        vio.set_state_csv_file(csv)
-        for fi, (t, images) in enumerate(zip(scene.times, scene.images)):
+        if callbacks:
+            vio.set_state_csv_file(csv)
+        for fi, (t, images) in enumerate(frames):
             if profile and fi == a:
                 sync()
                 prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
@@ -1616,7 +1644,7 @@ def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=
                 Timing.reset()
                 n_opt = len(vio.opt_latencies)
             if checkpoint_dir is not None and fi + 1 == RUNTIME_CHECKPOINT_AFTER:
-                out.checkpoint = runtime_checkpoint(vio, checkpoint_dir)
+                out.checkpoint = runtime_checkpoint(vio, checkpoint_dir, params)
             if prof is not None and fi == b - 1:
                 wall_ms = 1e3 * (time.perf_counter() - t_prof)
                 prof.__exit__(None, None, None)
@@ -1629,15 +1657,24 @@ def run_runtime(scene, dev: str = "cuda", profile: bool = False, checkpoint_dir=
         out.stages = {name: dict(count=acc.count, mean_ms=1e3 * acc.mean, min_ms=1e3 * acc.min, max_ms=1e3 * acc.max)
                       for name, acc in Timing._timers.items() if name in RUNTIME_STAGES}
         out.opt_latencies_ms = [1e3 * x for x in vio.opt_latencies[n_opt:]]
+        if mode == "per_state":
+            est = vio.estimator
+            true_r1 = modes_rig("runtime", "cpu").T_SC.r[1].numpy()
+            out.calibration = dict(
+                before=float(np.linalg.norm(MODES_OFFSET)),
+                after=float(np.linalg.norm(est.r_SC_t[est._last_state().slot, 1] - true_r1)),
+                dense_dim=est.cfg.dense_dim)
     finally:
         kernels.masked_distance_matrix = orig_mdm
+        detection.harris_suppressed = orig_harris
         try:
             vio.shutdown()
         finally:
-            with open(csv) as f:
-                out.csv_rows = len(f.read().splitlines()) - 1
+            if callbacks:
+                with open(csv) as f:
+                    out.csv_rows = len(f.read().splitlines()) - 1
             tmp.cleanup()
-    out.frames_fed, out.frames_processed = len(scene.times), vio._frames_processed
+    out.frames_fed, out.frames_processed = len(frames), vio._frames_processed
     return out
 
 
@@ -1782,7 +1819,6 @@ def check_runtime(vio: dict, dev: str = "cuda") -> dict:
 MODES = ("pyramid", "per_state", "mono")
 MODES_MONO_FRAMES = 60
 MODES_RERUN_FRAMES = 20
-MODES_PROFILE_FRAMES = (10, 15)
 MODES_MASK = dict(left=64, bottom=48)
 MODES_OFFSET = (0.004, -0.003, 0.002)
 MODES_PER_STATE_SIGMAS = dict(sigma_c_relative_translation=1e-4, sigma_c_relative_orientation=1e-5,
@@ -1828,9 +1864,9 @@ def modes_mask():
 
 
 def modes_rig(mode: str, dev: str):
-    """The rig the mode's ThreadedVio gets: the EuRoC stereo rig with
-    overlaps, camera 1's translation MODES_OFFSET off in per_state, camera 0
-    alone in mono."""
+    """The rig a run_runtime mode's ThreadedVio gets: the EuRoC stereo rig
+    with overlaps (runtime, pyramid), camera 1's translation MODES_OFFSET
+    off in per_state, camera 0 alone in mono."""
     import torch
 
     from okvis_tpu_torch import kinematics as kin
@@ -1848,6 +1884,8 @@ def modes_rig(mode: str, dev: str):
 
 
 def modes_params(mode: str):
+    """The VioParameters of a run_runtime mode: runtime_params, with two
+    octaves in pyramid and MODES_PER_STATE_SIGMAS in per_state."""
     p = runtime_params()
     if mode == "pyramid":
         p.optimization.detection_octaves = 2
@@ -1871,111 +1909,6 @@ def modes_scenes() -> dict:
     traj = gentle_mono_trajectory(MODES_MONO_FRAMES)
     mono = render_scenario(mono_rig, traj, make_landmarks(traj, 300, seed=42, radius=(4.0, 9.0)), MODES_MONO_FRAMES)
     return dict(pyramid=stereo, per_state=stereo, mono=mono)
-
-
-def run_mode(mode: str, scene, dev: str = "cuda", n_frames=None, profile: bool = False, checkpoint_dir=None):
-    """One mode's frames through the port's ThreadedVio in blocking mode in
-    float32, fed as run_runtime feeds (the IMU up to 25 ms past a frame, the
-    images, wait_idle; timestamps rounded to the ns). Per frame: host ms
-    from the first add_image to wait_idle's return, syncstats, the kernels'
-    launches, the association-shape Hamming launches and shapes, the
-    keypoint-to-landmark ids. With `profile`, MODES_PROFILE_FRAMES run under
-    torch.profiler; with `checkpoint_dir`, a checkpoint round trip after
-    RUNTIME_CHECKPOINT_AFTER frames. Returns a namespace of the run."""
-    import torch
-    from torch.profiler import ProfilerActivity
-
-    from okvis_tpu_torch.frontend import kernels
-    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
-    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
-    from okvis_tpu_torch.pipeline import ThreadedVio
-    from okvis_tpu_torch.utils import syncstats
-    from okvis_tpu_torch.utils.ids import IdProvider
-    from okvis_tpu_torch.utils.time import ns_from_sec
-
-    rig = modes_rig(mode, dev)
-    IdProvider.reset()
-    vio = ThreadedVio(modes_params(mode), rig=rig, blocking=True, dtype=torch.float32, device=dev)
-    if mode == "pyramid":
-        vio.frontend.cfg.detection_masks = (modes_mask(),) * rig.num_cameras
-    out = SimpleNamespace(vio=vio, rows=[], mfs=[], checkpoint=None, profile=None, assoc_args=None,
-                          assoc_shapes=set(), calibration=None)
-    assoc = vio.frontend.data_association_and_initialization
-
-    def record(est, T_WS, mf, sb_prop=None):
-        out.mfs.append(mf)
-        return assoc(est, T_WS, mf, sb_prop=sb_prop)
-
-    vio.frontend.data_association_and_initialization = record
-    shapes = []
-    orig_mdm = kernels.masked_distance_matrix
-
-    def mdm(*args):
-        res = orig_mdm(*args)
-        shapes.append(res.dim() == 3)  # the association round's (P·C, K, K) batch
-        if res.dim() == 3:
-            out.assoc_args = args
-            out.assoc_shapes.add(tuple(res.shape))
-        return res
-
-    kernels.masked_distance_matrix = mdm
-    traj = scene.traj
-    ts_ns = [int(ns_from_sec(t)) for t in traj.ts]
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    a, b = MODES_PROFILE_FRAMES
-    imu_i, prof = 0, None
-    frames = list(zip(scene.times, scene.images))[:n_frames]
-    try:
-        for fi, (t, images) in enumerate(frames):
-            if profile and fi == a:
-                sync()
-                prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
-                prof.__enter__()
-                t_prof = time.perf_counter()
-            syncstats.reset()
-            n_shapes, harris0, ham0 = len(shapes), harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
-            t_ns = int(ns_from_sec(t))
-            while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
-                vio.add_imu_measurement(ts_ns[imu_i], traj.gyro[imu_i], traj.acc[imu_i])
-                imu_i += 1
-            t0 = time.perf_counter()
-            for c, image in enumerate(images):
-                vio.add_image(t_ns, c, image)
-            vio.wait_idle(timeout=120)
-            frame_ms = 1e3 * (time.perf_counter() - t0)
-            state = vio.trajectory[-1] if vio.trajectory and vio.trajectory[-1].timestamp_ns == t_ns else None
-            i = int(round(t * 200))
-            out.rows.append(dict(
-                frame=fi, frame_ms=frame_ms, syncs=syncstats.snapshot(), profiled=prof is not None,
-                tracked=state is not None, keyframe=bool(state is not None and state.is_keyframe),
-                initialized=vio.frontend.is_initialized, harris=harris_suppressed_cuda.launches - harris0,
-                hamming=hamming_matrix_cuda.launches - ham0, hamming_association=sum(shapes[n_shapes:]),
-                landmarks=vio.estimator.num_landmarks(),
-                position=None if state is None else float(np.linalg.norm(state.T_WS.r.numpy() - traj.r[i])),
-                lids=[f.landmark_ids.copy() for f in out.mfs[-1].frames] if state is not None else None))
-            if checkpoint_dir is not None and fi + 1 == RUNTIME_CHECKPOINT_AFTER:
-                out.checkpoint = runtime_checkpoint(vio, checkpoint_dir, modes_params(mode))
-            if prof is not None and fi == b - 1:
-                wall_ms = 1e3 * (time.perf_counter() - t_prof)
-                prof.__exit__(None, None, None)
-                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
-                out.profile = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
-                                   device_busy_share=kernel_ms / wall_ms,
-                                   launches_per_frame=sum(e.count for e in kern) / (b - a))
-                prof = None
-        if mode == "per_state":
-            est = vio.estimator
-            true_r1 = modes_rig("pyramid", "cpu").T_SC.r[1].numpy()
-            out.calibration = dict(
-                before=float(np.linalg.norm(MODES_OFFSET)),
-                after=float(np.linalg.norm(est.r_SC_t[est._last_state().slot, 1] - true_r1)),
-                dense_dim=est.cfg.dense_dim)
-    finally:
-        kernels.masked_distance_matrix = orig_mdm
-        vio.shutdown()
-    out.frames_fed, out.frames_processed = len(frames), vio._frames_processed
-    return out
 
 
 def check_modes(dev: str = "cuda") -> dict:
@@ -2003,10 +1936,10 @@ def check_modes(dev: str = "cuda") -> dict:
         harris_suppressed_cuda.launches = 0
         hamming_matrix_cuda.launches = 0
         with tempfile.TemporaryDirectory() as ckpt:
-            run1 = run_mode(mode, scene, dev, profile=dev == "cuda",
-                            checkpoint_dir=ckpt if mode == "per_state" else None)
+            run1 = run_runtime(scene, dev, mode, profile=dev == "cuda",
+                               checkpoint_dir=ckpt if mode == "per_state" else None)
         launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
-        run2 = run_mode(mode, scene, dev, n_frames=MODES_RERUN_FRAMES)
+        run2 = run_runtime(scene, dev, mode, n_frames=MODES_RERUN_FRAMES)
         result = runtime_result(run1, scene.traj)
         same = mode_rerun_equal(run1, run2)
         runs[mode] = run1
@@ -2021,6 +1954,7 @@ def check_modes(dev: str = "cuda") -> dict:
             profile=run1.profile, launches=launches,
             launches_per_frame={k: v / len(run1.rows) for k, v in launches.items()},
             harris_per_frame=sorted({r["harris"] for r in run1.rows}),
+            harris_per_frame_by_shape=harris_by_shape(run1),
             hamming_association_per_frame=sum(r["hamming_association"] for r in run1.rows[1:]) / (len(run1.rows) - 1),
             association_shapes=sorted(run1.assoc_shapes), calibration_error_m=run1.calibration,
             checkpoint=run1.checkpoint, frames_fed=run1.frames_fed, frames_processed=run1.frames_processed,
@@ -2041,6 +1975,13 @@ def check_modes(dev: str = "cuda") -> dict:
     if fails:
         raise SmokeError("modes phase: " + "; ".join(fails))
     return dict(launches={m: r["launches"] for m, r in results.items()}, kernels=kern)
+
+
+def harris_by_shape(run) -> dict:
+    """Harris launches a frame at each (C, H, W) the run launched it at,
+    from run_runtime's record of every launch."""
+    counts = collections.Counter(run.harris_shapes)
+    return {"x".join(map(str, shape)): n / len(run.rows) for shape, n in sorted(counts.items(), reverse=True)}
 
 
 def mode_settings(mode: str) -> dict:
@@ -2099,6 +2040,10 @@ def mode_fails(mode: str, line: dict, run) -> list:
     octaves = 3 if mode == "pyramid" else 1
     if line["harris_per_frame"] != [octaves]:
         fails.append(f"Harris launches a frame {line['harris_per_frame']} (want {octaves})")
+    cams = line["cameras"]
+    want = {f"{cams}x{480 >> o}x{752 >> o}": 1.0 for o in range(octaves)}
+    if line["harris_per_frame_by_shape"] != want:
+        fails.append(f"Harris launches a frame by shape {line['harris_per_frame_by_shape']} (want {want})")
     if min(r["hamming_association"] for r in run.rows[1:]) < 1 and mode != "mono":
         fails.append("a frame after the first made no association-shape Hamming launch")
     if mode == "mono" and not any(s[0] >= 1 for s in line["association_shapes"]):
@@ -2117,7 +2062,8 @@ def check_mode_kernels(runs) -> dict:
     """The Harris kernel against its plain version at every pyramid level of
     the pyramid run's last frame, with the mode's mask subsampled and the
     level's border, over the whole image (raw bit for bit, the same
-    suppressed values), timed with its plain version and bound; the Hamming
+    suppressed values), timed with its plain version and bound, beside the
+    pyramid run's launches a frame at the level's shape; the Hamming
     kernel against its plain version at the mono run's last association
     batch, timed beside torch.bmm of the ±1 form. These launches come after
     the modes' counts were read."""
@@ -2130,6 +2076,7 @@ def check_mode_kernels(runs) -> dict:
 
     images = torch.stack([torch.as_tensor(im) for im in vio_scene().images[-1]]).to("cuda", torch.float32)
     mask = torch.from_numpy(modes_mask()).to("cuda").expand(images.shape[0], 480, 752)
+    pyramid_launches = harris_by_shape(runs["pyramid"])
     octaves, fails = [], False
     level = images.contiguous()
     for o in range(3):
@@ -2153,7 +2100,7 @@ def check_mode_kernels(runs) -> dict:
             ms=device_ms(lambda: harris_suppressed_cuda(level, inb)),
             plain_ms=device_ms(lambda: detection.harris_suppressed_plain(level, inb)),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            launches_per_frame_pyramid=1))
+            launches_per_frame_pyramid=pyramid_launches.get(f"{C}x{H}x{W}", 0.0)))
     args = runs["mono"].assoc_args
     dk = hamming_matrix_cuda(*args)
     dp = masked_distance_matrix_plain(*args)
