@@ -85,7 +85,8 @@ class OptimizationConfig:
 @dataclasses.dataclass
 class PoseGraphConfigParams:
     """Pose-graph / loop-closure layer (the JAX package's extension; the
-    reference has none; not ported). Off unless the YAML enables it."""
+    reference has none; okvis_tpu_torch.posegraph). Off unless the YAML
+    enables it."""
 
     enabled: bool = False
     score_threshold: float = 0.22

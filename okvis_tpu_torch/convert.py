@@ -286,3 +286,96 @@ def load_estimator_state(est: Estimator, values: dict) -> None:
     est.fej_ext_t_frozen = np.array(values["fej_ext_t_frozen"], bool)
     est._rebuild_obs_count()
     est._obs_cols.rebuild(est.observations, est.states, est.landmarks)
+
+
+# the pose graph's, the database's and the manager's host state
+GRAPH_ARRAYS = ("node_r", "node_q", "node_mask", "fixed", "edge_i", "edge_j", "meas_r", "meas_q", "sqrt_info",
+                 "edge_mask", "edge_kind")
+_GRAPH_VALUES = ("_node_cap", "_edge_cap", "n_nodes", "n_edges")
+_DB_ARRAYS = ("desc", "mask", "occupied")
+_DB_LISTS = ("bearings", "landmarks", "lm_valid")
+
+
+def _pose(p):
+    return None if p is None else (np.array(p[0], np.float64), np.array(p[1], np.float64))
+
+
+def graph_to_numpy(g) -> dict:
+    """A PoseGraph of either package as plain values and numpy arrays: its
+    slots, masks, edges, fixed flags, capacities, id<->slot maps and
+    free-slot list."""
+    return dict(**{k: np.array(getattr(g, k)) for k in GRAPH_ARRAYS},
+                **{k: int(getattr(g, k)) for k in _GRAPH_VALUES},
+                slot_of={int(k): int(v) for k, v in g.slot_of.items()},
+                id_of={int(k): int(v) for k, v in g.id_of.items()}, free_slots=[int(s) for s in g._free_slots])
+
+
+def _fill_graph(g, values: dict):
+    for k in GRAPH_ARRAYS:
+        setattr(g, k, np.array(values[k]))
+    for k in _GRAPH_VALUES:
+        setattr(g, k, int(values[k]))
+    g.slot_of, g.id_of, g._free_slots = dict(values["slot_of"]), dict(values["id_of"]), list(values["free_slots"])
+    return g
+
+
+def graph_from_numpy(values: dict, device=None):
+    """The port's PoseGraph holding graph_to_numpy's output, on `device`
+    (the CUDA card unless "cpu")."""
+    from .posegraph.graph import PoseGraph
+
+    return _fill_graph(PoseGraph(values["_node_cap"], values["_edge_cap"], device=device), values)
+
+
+def posegraph_to_numpy(mgr) -> dict:
+    """The host state of a PoseGraphManager of either package as plain values
+    and numpy arrays: its config; its graph (graph_to_numpy); the keyframe
+    database's descriptors, masks, geometry and ring order; the VIO poses,
+    timestamps, insert order, correction and loop events. Not the RANSAC
+    draws' state."""
+    g, db = mgr.graph, mgr.db
+    return dict(
+        cfg=dataclasses.asdict(mgr.cfg),
+        T_SC=_pose(mgr.T_SC),
+        graph=graph_to_numpy(g),
+        db=dict(**{k: np.array(getattr(db, k)) for k in _DB_ARRAYS},
+                **{k: [None if a is None else np.array(a) for a in getattr(db, k)] for k in _DB_LISTS},
+                kf_ids=[None if i is None else int(i) for i in db.kf_ids],
+                slot_of={int(k): int(v) for k, v in db.slot_of.items()}, order=[int(i) for i in db._order]),
+        prev_kf_id=None if mgr.prev_kf_id is None else int(mgr.prev_kf_id),
+        prev_vio_pose=_pose(mgr.prev_vio_pose),
+        vio_pose_of={int(k): _pose(v) for k, v in mgr.vio_pose_of.items()},
+        timestamps={int(k): int(v) for k, v in mgr.timestamps.items()},
+        insert_order=[int(i) for i in mgr.insert_order],
+        corr_r=np.array(mgr.corr_r, np.float64),
+        corr_q=np.array(mgr.corr_q, np.float64),
+        loop_events=[dict(query_id=int(e.query_id), candidate_id=int(e.candidate_id), score=float(e.score),
+                          num_inliers=int(e.num_inliers), accepted=bool(e.accepted)) for e in mgr.loop_events],
+    )
+
+
+def posegraph_from_numpy(values: dict, device=None):
+    """The port's PoseGraphManager holding posegraph_to_numpy's output (e.g.
+    a JAX manager read mid-run), on `device` (the CUDA card unless "cpu"):
+    its config, graph, database (uploaded whole to the device) and host
+    state."""
+    from .posegraph.manager import LoopEvent, PoseGraphConfig, PoseGraphManager
+
+    _check_fields(PoseGraphConfig, values["cfg"], "posegraph_from_numpy")
+    mgr = PoseGraphManager(PoseGraphConfig(**values["cfg"]), T_SC=_pose(values["T_SC"]), device=device)
+    db, dv = mgr.db, values["db"]
+    _fill_graph(mgr.graph, values["graph"])
+    for k in _DB_ARRAYS:
+        setattr(db, k, np.array(dv[k]))
+    for k in _DB_LISTS:
+        setattr(db, k, [None if a is None else np.array(a) for a in dv[k]])
+    db.kf_ids, db.slot_of, db._order = list(dv["kf_ids"]), dict(dv["slot_of"]), list(dv["order"])
+    db.upload()
+    mgr.prev_kf_id = values["prev_kf_id"]
+    mgr.prev_vio_pose = _pose(values["prev_vio_pose"])
+    mgr.vio_pose_of = {k: _pose(v) for k, v in values["vio_pose_of"].items()}
+    mgr.timestamps = dict(values["timestamps"])
+    mgr.insert_order = list(values["insert_order"])
+    mgr.corr_r, mgr.corr_q = np.array(values["corr_r"]), np.array(values["corr_q"])
+    mgr.loop_events = [LoopEvent(**e) for e in values["loop_events"]]
+    return mgr

@@ -584,6 +584,24 @@ def vio_scenario(rig, n_frames: int = 20, frame_dt: float = 0.1) -> VioScenario:
     return render_scenario(rig, traj, lms, n_frames, frame_dt)
 
 
+def revisit_scenario(rig, n_frames: int = 27, period: float = 2.0, frame_dt: float = 0.1) -> VioScenario:
+    """A world the rig sees all around and then again: one turn about the
+    sensor's x axis every `period` s (the cameras look up, then sideways,
+    down and up again) and a position of (0.1, 0.05, 0) m ⊙ (1 - cos ωt),
+    ω = 2π / period, from rest, so from frame period / frame_dt on the
+    frames repeat frame 0 on, once the start's landmarks have left the view.
+    260 landmarks at 2-4 m (seed 32; at 4-8 m the 11 cm stereo baseline
+    leaves the first keyframes' landmarks too coarse for a loop edge within
+    0.02 rad of the VIO relative pose), rendered by render_scenario."""
+    w = 2 * np.pi / period
+    sway = np.asarray([0.1, 0.05, 0.0])
+    traj = simulate_trajectory(duration=n_frames * frame_dt, seed=31,
+                               omega_fn=lambda t: np.array([w, 0.0, 0.0]),
+                               acc_w_fn=lambda t: sway * w * w * np.cos(w * t))
+    lms = make_landmarks(traj, 260, seed=32, radius=(2.0, 4.0))
+    return render_scenario(rig, traj, lms, n_frames, frame_dt)
+
+
 def gentle_mono_trajectory(n_frames: int, frame_dt: float = 0.1) -> SyntheticImu:
     """tests/test_vision_e2e.py::test_mono_gentle_motion_bootstrap's
     trajectory: seed 41, periodic excitation of period 8 s (angular rate
@@ -612,3 +630,78 @@ def render_scenario(rig, traj: SyntheticImu, landmarks: np.ndarray, n_frames: in
             for c in range(rig.num_cameras)])
         times.append(t)
     return VioScenario(traj=traj, landmarks=landmarks, times=times, images=images)
+
+
+# ---------------------------------------------------------------------------
+# pose-graph scenarios: plain numpy, so that either package's PoseGraph and
+# PoseGraphManager can be fed the same values
+# ---------------------------------------------------------------------------
+
+
+def circle_pose_graph(n_nodes: int, seed: int = 0) -> dict:
+    """The drifting circle of scripts/bench_posegraph.py::build_circle_graph,
+    as the calls that build it, with the same numpy draws: `nodes` of
+    (id, r, q, fixed) (node i at angle 2πi/n on a circle of circumference n,
+    with a N(0, 0.05 i/n) accumulated drift; node 0 fixed), `edges` of
+    (i, j, t, q, sqrt_info): the odometry chain (the world-frame step plus
+    N(0, 0.01) noise, identity rotation, 10·I) and one loop edge from node
+    n-1 to 0. For PoseGraph(node_capacity=n, edge_capacity=2n)."""
+    rng = np.random.default_rng(seed)
+    radius = n_nodes / (2 * np.pi)
+    nodes = []
+    for i in range(n_nodes):
+        a = 2 * np.pi * i / n_nodes
+        r = np.asarray([radius * np.cos(a), radius * np.sin(a), 0.0])
+        r += rng.normal(0, 0.05 * i / n_nodes, 3)
+        nodes.append((i, r, np.asarray([0.0, 0.0, np.sin(a / 2), np.cos(a / 2)]), i == 0))
+    identity, info = np.asarray([0.0, 0, 0, 1.0]), np.eye(6) * 10.0
+    edges = [(i, i + 1, nodes[i + 1][1] - nodes[i][1] + rng.normal(0, 0.01, 3), identity, info)
+             for i in range(n_nodes - 1)]
+    edges.append((n_nodes - 1, 0, nodes[0][1] - nodes[n_nodes - 1][1], identity, info))
+    return dict(nodes=nodes, edges=edges)
+
+
+def fill_pose_graph(graph, spec: dict):
+    """Add circle_pose_graph's nodes and edges to a PoseGraph of either
+    package; returns it."""
+    for kf_id, r, q, fixed in spec["nodes"]:
+        graph.add_node(kf_id, r, q, fixed=fixed)
+    for i, j, t, q, info in spec["edges"]:
+        graph.add_edge(i, j, t, q, info)
+    return graph
+
+
+def square_loop_keyframes(rng: np.random.Generator, n_landmarks: int = 60, words: bool = False,
+                          side: float = 6.0, per_side: int = 5, drift=(0.02, 0.015, 0.0)) -> list:
+    """The keyframes of tests/test_posegraph.py::TestManagerEndToEnd: a
+    square path, `per_side` keyframes a side of `side` m, plus a revisit of
+    the start (21 by default). Keyframe i sees its own cloud of `n_landmarks`
+    points uniform in ±2.5 m around (x_i, y_i, 6) with random descriptors,
+    drawn from `rng` in the JAX test's order; the revisit re-observes
+    keyframe 0's points and descriptors. The VIO pose drifts by `drift` a
+    keyframe. Descriptors are (n, 64) uint8, or with `words` (n, 16)
+    uint32. Each keyframe: dict(gt, vio, landmarks_W, descriptors,
+    bearings), the bearings seen from the true pose."""
+    gt = []
+    for leg, (dx, dy) in enumerate([(1, 0), (0, 1), (-1, 0), (0, -1)]):
+        x0, y0 = [0, side, side, 0][leg], [0, 0, side, side][leg]
+        for k in range(per_side):
+            t = (k / per_side) * side
+            gt.append((np.array([x0 + dx * t, y0 + dy * t, 0.0]), np.array([0.0, 0.0, 0.0, 1.0])))
+    gt.append(gt[0])
+    clouds, descs = [], []
+    for i in range(len(gt) - 1):
+        clouds.append(np.asarray((gt[i][0][0], gt[i][0][1], 6.0)) + rng.uniform(-2.5, 2.5, (n_landmarks, 3)))
+        descs.append(rng.integers(0, 2**32, (n_landmarks, 16), dtype=np.uint32) if words
+                     else rng.integers(0, 256, size=(n_landmarks, 64), dtype=np.uint8))
+    clouds.append(clouds[0])
+    descs.append(descs[0])
+    from ..kinematics import np_se3
+
+    def bearings(points_W, r_WS, q_WS):  # unit bearings in the sensor (= camera) frame
+        p_S = (points_W - r_WS) @ np_se3.quat_to_matrix(q_WS)  # C^T (p - r)
+        return p_S / np.linalg.norm(p_S, axis=1, keepdims=True)
+
+    drift = np.asarray(drift)
+    return [dict(gt=gt[i], vio=(gt[i][0] + drift * i, gt[i][1]), landmarks_W=clouds[i], descriptors=descs[i],
+                 bearings=bearings(clouds[i], *gt[i])) for i in range(len(gt))]

@@ -27,8 +27,11 @@ cannot pass for a quiet pipeline:
   WindowFullError (the JAX package drops on any RuntimeError or ValueError,
   which in PyTorch would include a failed launch or an exhausted card).
 
-Not ported (construction raises NotImplementedError): the distributed
-solve and the pose-graph layer.
+The pose-graph layer (params.posegraph.enabled) runs in the processing
+thread on keyframes only, in float64 on the pipeline's device; it reads the
+estimator and never writes it, so the states are the same with it on or
+off. Not ported (construction raises NotImplementedError): the distributed
+solve.
 """
 
 from __future__ import annotations
@@ -116,8 +119,6 @@ class ThreadedVio:
                 "calibration needs BOTH (ref Estimator.cpp:199-205); treating extrinsics as temporally constant")
         if params.optimization.distributed_devices > 0:
             raise _not_ported("the distributed solve (distributed_devices > 0)", 8)
-        if params.posegraph.enabled:
-            raise _not_ported("the pose-graph layer (posegraph.enabled)", 7)
 
         self.rig = rig or build_rig(params, device=self.device)
         if self.rig.device.type != self.device.type:
@@ -168,6 +169,26 @@ class ThreadedVio:
             ),
         )
         self.blocking = blocking
+
+        # optional pose-graph / loop-closure layer (the JAX package's
+        # extension; the reference has none): fed cam 0 of each keyframe in
+        # the processing thread; the solve runs only on verified loops
+        self.posegraph = None
+        if params.posegraph.enabled:
+            from ..posegraph.manager import PoseGraphConfig, PoseGraphManager
+
+            pg = params.posegraph
+            self.posegraph = PoseGraphManager(
+                PoseGraphConfig(score_threshold=pg.score_threshold, min_gap=pg.min_gap, min_inliers=pg.min_inliers,
+                                node_capacity=pg.node_capacity, edge_capacity=pg.edge_capacity,
+                                focal=float(self.rig.intrinsics[0][0]),
+                                db_kp_capacity=params.optimization.max_num_keypoints, desc_words=16,
+                                desc_dtype=np.uint32),
+                T_SC=(self.rig.T_SC.r[0].cpu().numpy().astype(np.float64),
+                      self.rig.T_SC.q[0].cpu().numpy().astype(np.float64)),
+                device=self.device)
+        # called with each accepted LoopEvent
+        self.loop_closure_callback: Optional[Callable] = None
 
         # queues (ThreadedKFVio.hpp:343-375)
         self.camera_queues = [ThreadSafeQueue() for _ in range(self.rig.num_cameras)]
@@ -559,6 +580,10 @@ class ThreadedVio:
             # newest state (ref deleteImuMeasurements, ThreadedKFVio.cpp:756-772)
             self._trim_imu(epoch0 + int(est._states_by_time()[-1].timestamp * NS) - NS // 2)
 
+            if self.posegraph is not None and as_keyframe:
+                with Timer("3.3 posegraph"):
+                    self._feed_posegraph(est, sid, mf, ts_ns)
+
             result = StateEstimate(
                 timestamp_ns=ts_ns,
                 T_WS=est.get_T_WS(sid),
@@ -571,6 +596,46 @@ class ThreadedVio:
                 self.trajectory.append(result)
             self.result_queue.push_nonblocking_dropping_if_full(result, 10)
             self._count("_frames_processed")
+
+    def _feed_posegraph(self, est: Estimator, sid: int, mf: MultiFrame, ts_ns: int) -> None:
+        """Hand the new keyframe's camera 0 to the pose-graph layer: its
+        descriptors (one device-to-host copy), unit bearings
+        (back-projection) and the world positions of its initialized
+        landmarks."""
+        from ..frontend import kernels
+
+        f = mf.frames[0]
+        desc = f.descriptors.cpu().numpy().view(np.uint32)  # (K, 16)
+        mask = f.mask_np.copy()
+        uv = f.uv_np
+        K = desc.shape[0]
+        rays = kernels.back_project_batch(
+            self.rig.specs[0], self.rig.intrinsics[0], torch.as_tensor(uv, device=self.device)).cpu().numpy()
+        bearings = rays / np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)
+
+        lms_W = np.zeros((K, 3))
+        lm_valid = np.zeros(K, bool)
+        for k in range(K):
+            lm_id = int(f.landmark_ids[k])
+            if lm_id == 0 or not mask[k]:
+                continue
+            rec = est.landmarks.get(lm_id)
+            if rec is None or not rec.initialized:
+                continue
+            hp = est.get_landmark(lm_id)
+            if abs(hp[3]) < 1e-8:
+                continue
+            lms_W[k] = hp[:3] / hp[3]
+            lm_valid[k] = True
+
+        T = est.get_T_WS(sid)
+        event = self.posegraph.add_keyframe(
+            kf_id=mf.id, timestamp_ns=ts_ns, r_WS_vio=T.r.numpy(), q_WS_vio=T.q.numpy(), descriptors=desc,
+            desc_mask=mask, bearings_C=bearings, landmarks_W=lms_W, lm_valid=lm_valid)
+        if self.params.posegraph.cull_redundant:
+            self.posegraph.cull_redundant()
+        if event is not None and event.accepted and self.loop_closure_callback is not None:
+            self.loop_closure_callback(event)
 
     def _publisher_loop(self) -> None:
         """Callback publishing (publisherLoop, ThreadedKFVio.cpp:857-878).

@@ -27,7 +27,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("na,nb", [(400, 400), (400, 3200), (1, 1), (17, 33), (0, 5)])
+@pytest.mark.parametrize("na,nb", [(400, 400), (400, 3200), (400, 102400), (1, 1), (17, 33), (0, 5)])
 def test_hamming_kernel_equals_plain(cuda, na, nb):
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
 
@@ -58,12 +58,13 @@ def _random_case(cuda, seed, g, na, nb, gb, masked):
 
 
 # (G, NA, NB, batch of B, masked): the stereo pair, the association batch
-# (P = 4 sources x C = 2 cameras, one frame's B broadcast), a database shape,
+# (P = 4 sources x C = 2 cameras, one frame's B broadcast), database shapes
+# (the runtime's keyframe database: 256 keyframes x 400 keypoints),
 # ragged shapes that divide the 32 x 64 block tile in neither direction, and
 # empty ones
 @pytest.mark.parametrize("g,na,nb,gb,masked", [
     (1, 400, 400, 1, True), (8, 400, 400, 1, True), (8, 400, 400, 8, False),
-    (1, 400, 3200, 1, False), (1, 400, 3200, 1, True), (3, 397, 1001, 3, True),
+    (1, 400, 3200, 1, False), (1, 400, 3200, 1, True), (1, 400, 102400, 1, True), (3, 397, 1001, 3, True),
     (2, 1, 1, 1, True), (1, 17, 33, 1, True), (2, 0, 5, 1, True), (2, 5, 0, 2, True)])
 def test_masked_hamming_kernel_equals_plain(cuda, g, na, nb, gb, masked):
     from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
@@ -527,3 +528,31 @@ def test_runtime_on_the_card_matches_cpu_float64(cuda):
     for a, b in zip(card.trajectory, ref.trajectory):
         assert np.abs(a.T_WS.r.numpy() - b.T_WS.r.numpy()).max() < tol_m
     assert isinstance(card.estimator.marg_H, torch.Tensor) and card.estimator.marg_H.device.type == "cuda"
+
+
+def test_pose_graph_on_the_card_matches_cpu_and_repeats(cuda):
+    """The drifting circle at 64 nodes (dense) and 400 (PCG) solved on the
+    card: bitwise equal twice, and equal to the CPU's float64 solve to
+    1e-9; one keyframe-database query equal to the CPU's."""
+    from okvis_tpu_torch.datasets.synthetic import circle_pose_graph, fill_pose_graph
+    from okvis_tpu_torch.posegraph.graph import PoseGraph
+    from okvis_tpu_torch.posegraph.place_recognition import KeyframeDatabase
+
+    for n in (64, 400):
+        spec = circle_pose_graph(n)
+        runs = [fill_pose_graph(PoseGraph(n, 2 * n, device=d), spec).optimize(max_iterations=8, pcg_iters=60)
+                for d in ("cuda", "cuda", "cpu")]
+        for k in ("node_r", "node_q", "final_cost", "iterations"):
+            assert torch.equal(getattr(runs[0], k), getattr(runs[1], k)), (n, k)
+            np.testing.assert_allclose(getattr(runs[0], k).cpu().numpy(), getattr(runs[2], k).numpy(), rtol=1e-9,
+                                       atol=1e-9)
+    rng = np.random.default_rng(3)
+    dbs = [KeyframeDatabase(32, 64, desc_words=16, desc_dtype=np.uint32, device=d) for d in ("cuda", "cpu")]
+    for i in range(20):
+        desc, mask = rng.integers(0, 2**32, (64, 16), dtype=np.uint32), rng.uniform(size=64) < 0.9
+        for db in dbs:
+            db.insert(i, desc, mask, np.zeros((64, 3)), np.zeros((64, 3)), np.ones(64, bool))
+    q = dbs[0].desc[5].copy()
+    got, want = (db.query(q, np.ones(64, bool), {19}) for db in dbs)
+    assert got[:2] == want[:2] and got[0] == 5
+    np.testing.assert_array_equal(got[2], want[2])

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax_okvis_tpu_yaml_or_pil():
                  "linalg", "convert", "frontend.ransac", "frontend.keyframe", "frontend.fivepoint",
                  "frontend.kernels", "kinematics.np_se3", "eval.ate", "utils.time", "config.parameters",
                  "config.yaml_reader", "pipeline.queues", "pipeline.synchronizer", "pipeline.threaded_vio",
-                 "pipeline.visualizer", "pipeline.pose_viewer"):
+                 "pipeline.visualizer", "pipeline.pose_viewer", "posegraph.graph", "posegraph.optimize",
+                 "posegraph.place_recognition", "posegraph.loop_closure", "posegraph.manager"):
         assert f"okvis_tpu_torch.{name}" in loaded, name
     bad = [m for m in loaded if _is_forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert not bad, bad

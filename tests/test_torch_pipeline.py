@@ -189,19 +189,21 @@ def _per_state(p):
 @pytest.mark.parametrize("mode,item", [
     (_per_state, None),
     (lambda p: setattr(p.optimization, "distributed_devices", 8), 8),
-    (lambda p: setattr(p.posegraph, "enabled", True), 7),
+    (lambda p: setattr(p.posegraph, "enabled", True), None),
     (lambda p: setattr(p.optimization, "detection_octaves", 2), None),
 ], ids=["per_state_extrinsics", "distributed", "posegraph", "detection_octaves"])
 def test_unported_modes_raise_at_construction(mode, item):
-    """The modes ROADMAP items 7 and 8 leave out raise at construction and
-    start no worker; those of item 6 (per-state extrinsics, scale-space
-    detection) are ported and build."""
+    """The mode ROADMAP item 8 leaves out (the distributed solve) raises at
+    construction and starts no worker; those of item 6 (per-state
+    extrinsics, scale-space detection) and item 7 (the pose graph) are
+    ported and build."""
     p = _params()
     mode(p)
     n = threading.active_count()
     if item is None:
         vio = _vio(p)
-        assert vio.estimator.cfg.extrinsics_per_state or vio.frontend.cfg.detection_octaves == 2
+        assert (vio.estimator.cfg.extrinsics_per_state or vio.frontend.cfg.detection_octaves == 2
+                or vio.posegraph is not None)
         vio.shutdown()
         assert _joined(vio)
         return
