@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the okvis_tpu_torch vision slice, back end, estimator, the
-per-frame VIO loop, the runtime (ThreadedVio) and its estimator modes on
-one CUDA card and check them.
+per-frame VIO loop, the runtime (ThreadedVio), its estimator modes, the
+pose-graph layer and the EuRoC app on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -86,9 +86,10 @@ one CUDA card and check them.
    and a detection mask, with per-state extrinsics from a camera-1
    calibration 5.4 mm off, and camera 0 alone on tests/test_vision_e2e.py
    :158's gentle-motion world (the first 40 of 60 frames), each once
-   profiled with its own launch counts and once more over its first 20
-   frames for bitwise
-   equality, the per-state run checkpointed and restored; holds each to
+   profiled with its own launch counts and once more over its first
+   MODES_RERUN_FRAMES frames for bitwise equality (every frame's
+   keypoint-to-landmark ids, the trajectory and the landmark table at that
+   frame), the per-state run checkpointed and restored; holds each to
    MODES_GATES (the JAX tests' ATE bounds, the JAX package's float32 CPU
    run of the same frames, JAX_MODES, the calibration error falling), both
    kernels on every mode's path (Harris once an octave a frame, counted
@@ -116,7 +117,26 @@ one CUDA card and check them.
    the pose-graph layer's Hamming launches by shape. Prints a `posegraph`
    line a part, and the Hamming kernel against its plain version at the
    database shape, timed beside the ±1 float32 torch.matmul
-   (`posegraph_kernels`).
+   (`posegraph_kernels`);
+16. runs the app phase (check_app): revisit, the posegraph phase's
+   revisiting world written in the EuRoC layout by the port's
+   write_euroc_format (2 x 752x480, on the CPU in float64; its sha256 held
+   to APP_DATASET_SHA256) and run through apps.run_euroc.run on the card in
+   float32 with loop closure and the zlib+numpy PNG decoder, then again
+   with the native decoder where g++ and libpng build it (its images held
+   equal to the python decoder's), each run's kernel launches recorded by
+   shape; held to APP_GATES (every frame processed, the ATE, loop closures
+   and pose-graph keyframes against the JAX float32 CPU run JAX_APP, each
+   loop edge near the VIO relative pose, the second run's TUM files byte
+   for byte the first's), and each kernel to its plain version at every
+   shape the app launched it at (`app_kernels`); textured,
+   tests/test_vision_textured.py's flight over a texture made in code
+   (APP_TEXTURED), rendered by the port's render_textured_plane and fed
+   to ThreadedVio twice, its first run's kernel launches recorded by
+   shape, held to the JAX test's bounds and the rerun's trajectory, and
+   each kernel to its plain version at every shape that run launched it at
+   (`app_textured_kernels`). Each part gates that its launches by shape
+   add up to its launch counts. Prints an `app` line a part.
 
 Prints the `kernels` JSON line (each kernel's `launches` from the runtime's
 first run, the other paths' in `launches_by_path`), and as its last line
@@ -129,6 +149,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import io
 import json
 import multiprocessing
 import re
@@ -1558,7 +1579,7 @@ def same_values(a, b) -> bool:
 
 
 def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, profile: bool = False,
-                checkpoint_dir=None):
+                checkpoint_dir=None, snapshot_after=None):
     """The scene's first `n_frames` frames (all by default) through the
     port's ThreadedVio in blocking mode in float32, fed as
     tests/test_vision_e2e.py feeds, with timestamps rounded to the ns
@@ -1578,7 +1599,9 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
     batches' shapes and the last batch's arguments. With `profile`, the
     frames of RUNTIME_PROFILE_FRAMES run under torch.profiler; with
     `checkpoint_dir`, runtime_checkpoint runs after RUNTIME_CHECKPOINT_AFTER
-    frames. Returns a namespace of the run's records."""
+    frames; with `snapshot_after`, the estimator's landmark ids and table
+    after that many frames are kept (`snapshot`). Returns a namespace of
+    the run's records."""
     import tempfile
 
     import torch
@@ -1602,7 +1625,8 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
         vio.frontend.cfg.detection_masks = (modes_mask(),) * rig.num_cameras
     out = SimpleNamespace(vio=vio, rows=[], published=[], transferred=[], mfs=[], checkpoint=None, profile=None,
                           stages=None, csv_rows=None, harris_shapes=[], assoc_shapes=set(), assoc_args=None,
-                          calibration=None, posegraph_feeds=[], posegraph_queries=[], loop_callbacks=[])
+                          calibration=None, posegraph_feeds=[], posegraph_queries=[], loop_callbacks=[],
+                          snapshot=None)
     if vio.posegraph is not None:
         vio.loop_closure_callback = out.loop_callbacks.append
         feed, query = vio._feed_posegraph, vio.posegraph.db.query
@@ -1696,6 +1720,8 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
             if fi == 1:  # two warm-up frames: the Timing table and latencies from here on
                 Timing.reset()
                 n_opt = len(vio.opt_latencies)
+            if fi + 1 == snapshot_after:
+                out.snapshot = (sorted(vio.estimator.landmarks), np.array(vio.estimator.hp_W, copy=True))
             if checkpoint_dir is not None and fi + 1 == RUNTIME_CHECKPOINT_AFTER:
                 out.checkpoint = runtime_checkpoint(vio, checkpoint_dir, params)
             if prof is not None and fi == b - 1:
@@ -1870,25 +1896,29 @@ def check_runtime(vio: dict, dev: str = "cuda") -> dict:
 # VioParameters as
 # runtime_params (EuRoC defaults, 400 keypoints, threshold 40, the default
 # window), blocking mode, float32 on the card. Each mode runs again over its
-# first MODES_RERUN_FRAMES frames for the bitwise comparison; the per_state
-# run is checkpointed after RUNTIME_CHECKPOINT_AFTER frames.
+# first MODES_RERUN_FRAMES frames for the bitwise comparison: 12 for the
+# stereo modes (past the first marginalization of landmarks, at frame 10 in
+# both), 20 for mono (it initializes at frame 16); the per_state run is
+# checkpointed after RUNTIME_CHECKPOINT_AFTER frames.
 MODES = ("pyramid", "per_state", "mono")
 MODES_MONO_FRAMES = 60
 MODES_MONO_FED = 40
-MODES_RERUN_FRAMES = 20
+MODES_RERUN_FRAMES = dict(pyramid=12, per_state=12, mono=20)
 MODES_MASK = dict(left=64, bottom=48)
 MODES_OFFSET = (0.004, -0.003, 0.002)
 MODES_PER_STATE_SIGMAS = dict(sigma_c_relative_translation=1e-4, sigma_c_relative_orientation=1e-5,
                               sigma_absolute_translation=0.05, sigma_absolute_orientation=0.02)
 # The JAX package's ThreadedVio on the same frames on the CPU
 # (scripts/jax_modes.py; a CPU run, not a device metric). Its mono reading
-# is of all 60 frames, of which the phase feeds 40; mono is held to bounds
+# is of the 40 frames the phase feeds of the 60-frame world
+# (scripts/jax_modes.py float32 mono 60:40; of all 60: ATE 0.2960 m, 82
+# landmarks, 10 keyframes, initialized at frame 16); mono is held to bounds
 # only
 JAX_MODES = dict(float32=dict(
     pyramid=dict(ate_m=0.022639131980574545, frames_tracked=20, landmarks=127, keyframes=7, initialized_at_frame=2),
     per_state=dict(ate_m=0.022438408627563387, frames_tracked=20, landmarks=178, keyframes=1, initialized_at_frame=None,
                    calibration_error_m=dict(before=0.005385164807134504, after=0.0038642948493361473)),
-    mono=dict(frames=60, ate_m=0.29595536488286445, frames_tracked=60, landmarks=82, keyframes=10,
+    mono=dict(frames=60, frames_fed=40, ate_m=0.3082743513537993, frames_tracked=40, landmarks=133, keyframes=5,
               initialized_at_frame=16),
 ))
 # Gates: frames tracked (n - 3, the JAX end-to-end tests' floor), the JAX
@@ -2001,9 +2031,11 @@ def check_modes(dev: str = "cuda") -> dict:
         hamming_matrix_cuda.launches = 0
         with tempfile.TemporaryDirectory() as ckpt:
             run1 = run_runtime(scene, dev, mode, n_frames=MODES_MONO_FED if mode == "mono" else None,
-                               profile=dev == "cuda", checkpoint_dir=ckpt if mode == "per_state" else None)
+                               profile=dev == "cuda", checkpoint_dir=ckpt if mode == "per_state" else None,
+                               snapshot_after=MODES_RERUN_FRAMES[mode])
         launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
-        run2 = run_runtime(scene, dev, mode, n_frames=MODES_RERUN_FRAMES)
+        run2 = run_runtime(scene, dev, mode, n_frames=MODES_RERUN_FRAMES[mode],
+                           snapshot_after=MODES_RERUN_FRAMES[mode])
         result = runtime_result(run1, scene.traj)
         same = mode_rerun_equal(run1, run2)
         runs[mode] = run1
@@ -2058,8 +2090,8 @@ def mode_settings(mode: str) -> dict:
 
 def mode_rerun_equal(run1, run2) -> dict:
     """The rerun of the first MODES_RERUN_FRAMES frames against the first
-    run: every frame's keypoint-to-landmark ids and the trajectory, and,
-    where the first run stopped there too, the landmark table."""
+    run: every frame's keypoint-to-landmark ids, the trajectory, and the
+    landmark ids and table after the rerun's last frame."""
     n = len(run2.rows)
     lids = [(a["lids"], b["lids"]) for a, b in zip(run1.rows[:n], run2.rows)]
     pose = lambda states: np.stack([np.concatenate([s.T_WS.r.numpy(), s.T_WS.q.numpy()]) for s in states])  # noqa: E731
@@ -2068,10 +2100,8 @@ def mode_rerun_equal(run1, run2) -> dict:
         keypoint_landmarks=all((a is None) == (b is None) and (a is None or all(map(np.array_equal, a, b)))
                                for a, b in lids),
         trajectory=bool(np.array_equal(pose(run1.vio.trajectory[: len(t2)]), t2)))
-    if len(run1.rows) == n:
-        est1, est2 = run1.vio.estimator, run2.vio.estimator
-        same["landmarks"] = sorted(est1.landmarks) == sorted(est2.landmarks) and bool(
-            np.array_equal(est1.hp_W, est2.hp_W))
+    (ids1, hp1), (ids2, hp2) = run1.snapshot, run2.snapshot
+    same["landmarks"] = ids1 == ids2 and bool(np.array_equal(hp1, hp2))
     return same
 
 
@@ -2699,6 +2729,512 @@ def check_posegraph(dev: str = "cuda") -> dict:
     return dict(launches={f"posegraph_{p}": lines[p]["launches"] for p in ("pgo", "loop", "runtime")}, database=entry)
 
 
+# ---------------------------------------------------------------------------
+# the app phase: the EuRoC app on a dataset the port writes, and ThreadedVio
+# over a textured plane
+# ---------------------------------------------------------------------------
+
+# revisit: the posegraph phase's revisiting world (datasets.synthetic.
+# revisit_world, POSEGRAPH_RUNTIME's frames and period) written by the port's
+# write_euroc_format at the EuRoC rig (2 x 752x480) on the CPU in float64,
+# then apps.run_euroc.run on the card in float32 with loop closure, the
+# posegraph runtime part's parameters built in code (400 keypoints,
+# threshold 40, min_gap 2) and the zlib+numpy PNG decoder; run again with the
+# native decoder where it builds (else the same decoder again).
+# textured: tests/test_vision_textured.py's flight (trajectory seed 81,
+# motion_scale 0.2, 3 m above the plane with a 180° roll, plane_scale 150,
+# 12 frames, 200 keypoints, threshold 25) over datasets.synthetic.
+# noise_texture (1,024 x 1,024, seed texture_seed), rendered by the port's
+# render_textured_plane and fed to ThreadedVio as the JAX test feeds it,
+# with timestamps rounded to the ns (utils.time.ns_from_sec), twice.
+APP_DECODER = "python"  # the first run's decoder: png.py, which needs no libpng
+APP_TEXTURED = dict(traj_seed=81, motion_scale=0.2, duration=1.6, height=3.0, plane_scale=150.0, frames=12,
+                    keypoints=200, threshold=25.0, texture_size=1024, texture_seed=7)
+# sha256 of the revisit dataset (app_dataset_digest) as the port writes it
+# on the CPU of the machine the readings were taken on: its content (the
+# CSV files' bytes and every PNG's decoded grey levels) does not depend on
+# the machine. The PNG files' own bytes also depend on the zlib library that
+# compressed them, so their digest is printed beside it, with zlib's version,
+# and not gated.
+APP_DATASET_SHA256 = "0f31a8fb5aa5a49b6801d8bea34f7b85a47c2eb357c23f601effc373d5051a83"
+# The JAX package on the CPU in float32 (scripts/jax_app.py; a CPU run, not a
+# device metric): its own write_euroc_format and run_euroc.run on the
+# revisit world (a YAML written from the same parameters), and its
+# render_textured_plane and ThreadedVio on the textured flight.
+JAX_APP = dict(
+    revisit=dict(frames_processed=27, frames_fed=27, ate_rmse_m=0.008293571757581377, loop_closures=1,
+                 posegraph_keyframes=19, ate_rmse_loop_m=0.00920746573328982,
+                 events=[dict(query_id=545, candidate_id=122, score=0.976190447807312, num_inliers=35, accepted=True)],
+                 loop_edges=[dict(translation_m=0.021004564725174393, rotation_rad=0.008891595017244996)]),
+    textured=dict(frames=12, frames_tracked=12, ate_m=0.03486934109005981, landmarks=187, keyframes=1),
+)
+# Gates: revisit: every frame fed processed, the ATE within ate_margin_m of
+# the JAX reading, loop closures and pose-graph keyframes within one of it,
+# every accepted loop edge within 0.05 m / 0.02 rad of the VIO relative
+# pose, the second run's TUM files byte for byte the first's; textured: the
+# JAX test's bounds (frames, ATE, landmarks) and the rerun's trajectory.
+APP_GATES = dict(ate_margin_m=0.003, loops_margin=1, keyframes_margin=1, rel_pose_m=0.05, rel_pose_rad=0.02,
+                 textured_frames=10, textured_ate_m=0.15, textured_landmarks=30)
+
+
+@contextlib.contextmanager
+def kernel_shapes(log: dict):
+    """Record every launch of both hand kernels for the length of a run:
+    `log` maps (kernel, "AxBxC") to [launches, the last launch's (args,
+    kwargs)]. Harris is keyed by its (C, H, W) input, Hamming by its output
+    (G, NA, NB) or (NA, NB). The wrappers are the modules' attributes, which
+    every caller looks up at call time, and so is the name whose `launches`
+    a wrapper function counts on: the wrapper carries the counter while it
+    is in place, and hands it back after."""
+    from okvis_tpu_torch.ops import detection_cuda, hamming_cuda
+
+    originals = (detection_cuda.harris_suppressed_cuda, hamming_cuda.hamming_matrix_cuda)
+
+    def wrap(name, fn, shape_of):
+        def call(*args, **kw):
+            n0 = call.launches
+            res = fn(*args, **kw)  # counts on call.launches, the module's name
+            if call.launches > n0:
+                entry = log.setdefault((name, "x".join(map(str, shape_of(args, res)))), [0, None])
+                entry[0] += call.launches - n0
+                entry[1] = (args, kw)
+            return res
+        call.launches = fn.launches
+        return call
+
+    wrappers = (wrap("harris_nms", originals[0], lambda a, r: a[0].shape),
+                wrap("hamming", originals[1], lambda a, r: r.shape))
+    detection_cuda.harris_suppressed_cuda, hamming_cuda.hamming_matrix_cuda = wrappers
+    try:
+        yield log
+    finally:
+        detection_cuda.harris_suppressed_cuda, hamming_cuda.hamming_matrix_cuda = originals
+        for fn, w in zip(originals, wrappers):
+            fn.launches = w.launches
+
+
+def shapes_of(log: dict) -> dict:
+    """kernel_shapes' launches, {kernel: {shape: launches}}."""
+    out = {}
+    for (name, shape), (n, _) in sorted(log.items()):
+        out.setdefault(name, {})[shape] = n
+    return out
+
+
+def shape_count_fails(launches: dict, log: dict) -> list:
+    """A kernel of the path launched no time, or launches by shape that do
+    not add up to the kernel's count."""
+    by = shapes_of(log)
+    return [f"{name}: {n} launches, {sum(by.get(name, {}).values())} by shape {by.get(name, {})}"
+            for name, n in launches.items() if n == 0 or sum(by.get(name, {}).values()) != n]
+
+
+def app_params(rig):
+    """The revisit part's VioParameters: the posegraph runtime part's
+    (modes_params("posegraph")) with the rig's cameras, so the loader reads
+    both cameras."""
+    from okvis_tpu_torch.config.yaml_writer import cameras_from_rig
+
+    p = modes_params("posegraph")
+    p.cameras = cameras_from_rig(rig)
+    return p
+
+
+def app_dataset_digest(mav0: str) -> dict:
+    """sha256 over the relative path of every file under mav0 and its
+    content (a PNG's decoded grey levels, any other file's bytes), and
+    sha256 over the paths and the files' bytes."""
+    import hashlib
+    import os
+    import zlib
+
+    from okvis_tpu_torch.datasets.png import read_png_gray
+
+    content, files = hashlib.sha256(), hashlib.sha256()
+    names = sorted(os.path.relpath(os.path.join(d, f), mav0) for d, _, fs in os.walk(mav0) for f in fs)
+    for name in names:
+        path = os.path.join(mav0, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        for h in (content, files):
+            h.update(name.encode())
+        files.update(data)
+        content.update(read_png_gray(path).astype(np.uint8).tobytes() if name.endswith(".png") else data)
+    return dict(content=content.hexdigest(), files=files.hexdigest(), zlib=zlib.ZLIB_RUNTIME_VERSION)
+
+
+def write_app_dataset(directory: str) -> dict:
+    """The revisit world written in the EuRoC layout under `directory`;
+    the time it took a written image (rendering included) and the PNG
+    encoding alone."""
+    import os
+
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.png import read_png_gray, write_png_gray
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, revisit_world, write_euroc_format
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    rig = NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+    n = POSEGRAPH_RUNTIME["frames"]
+    traj, lms = revisit_world(n, POSEGRAPH_RUNTIME["period"])
+    t0 = time.perf_counter()
+    mav0 = write_euroc_format(directory, traj, lms, rig, frame_dt=0.1, n_frames=n)
+    write_ms = 1e3 * (time.perf_counter() - t0) / (2 * n)
+    img = read_png_gray(os.path.join(mav0, "cam0", "data", sorted(os.listdir(os.path.join(mav0, "cam0", "data")))[0]))
+    encode_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        write_png_gray(f"{directory}/encode.png", img.astype(np.uint8))
+        encode_ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(mav0=mav0, traj=traj, images=2 * n, write_ms_per_image=write_ms,
+                png_encode_ms=statistics.median(encode_ms), sha256=app_dataset_digest(mav0))
+
+
+def decode_all(mav0: str, decoder: str) -> tuple:
+    """Every image of the dataset through one decoder: the images and the ms
+    each took."""
+    from okvis_tpu_torch.datasets.euroc import EurocDataset
+
+    ds = EurocDataset(mav0, num_cameras=2, decoder=decoder)
+    images, ms = [], []
+    for ev in ds.images:
+        t0 = time.perf_counter()
+        images.append(ev.load())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    assert set(ds.decoder_used.values()) == {decoder}, ds.decoder_used
+    return images, ms
+
+
+def run_app(mav0: str, out_dir: str, dev: str, decoder: str) -> SimpleNamespace:
+    """apps.run_euroc.run on the dataset, with its ThreadedVio recorded: the
+    pipeline itself (for its pose graph), the host time of each published
+    state, and the launches of both kernels by shape."""
+    import torch
+
+    from okvis_tpu_torch.apps import run_euroc
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+    from okvis_tpu_torch.utils.ids import IdProvider
+    from okvis_tpu_torch.utils.timing import Timing
+
+    rig = modes_rig("runtime", dev)
+    rec = SimpleNamespace(vio=None, published=[], shapes={})
+    base = run_euroc.ThreadedVio
+
+    class Recorded(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            rec.vio = self
+            self.state_callback = lambda t, T: rec.published.append(time.perf_counter())
+
+    IdProvider.reset()
+    Timing.reset()
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    run_euroc.ThreadedVio = Recorded
+    try:
+        with kernel_shapes(rec.shapes):
+            rec.out = run_euroc.run(app_params(rig), mav0, dtype=torch.float32, trajectory_out=f"{out_dir}/app.tum",
+                                    rig=rig, loop_closure=True, device=dev, decoder=decoder)
+    finally:
+        run_euroc.ThreadedVio = base
+    rec.launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+    rec.stages = {name: dict(count=acc.count, mean_ms=1e3 * acc.mean, min_ms=1e3 * acc.min, max_ms=1e3 * acc.max)
+                  for name, acc in Timing._timers.items()}
+    with open(f"{out_dir}/app.tum", "rb") as f:
+        rec.tum = f.read()
+    with open(f"{out_dir}/app.tum.loop", "rb") as f:
+        rec.loop = f.read()
+    return rec
+
+
+def app_kernel_entries(log: dict) -> list:
+    """Each kernel against its plain version on the last arguments the app
+    launched it with at each shape: max |difference|, equality (Harris: raw
+    bit for bit and the same suppressed values), the kernel's and the plain
+    version's device ms and the bound. These launches come after the app's
+    counts were read."""
+    import torch
+
+    from okvis_tpu_torch.frontend import detection
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming import masked_distance_matrix_plain
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    out = []
+    for (name, shape), (n, (args, kw)) in sorted(log.items()):
+        if name == "harris_nms":
+            raw_k, sup_k = harris_suppressed_cuda(*args, **kw)
+            raw_p, sup_p = detection.harris_suppressed_plain(*args, **kw)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(sup_p)
+            equal = (torch.equal(raw_k, raw_p) and torch.equal(torch.isfinite(sup_k), fin)
+                     and torch.equal(sup_k[fin], sup_p[fin]))
+            err = float((raw_k - raw_p).abs().max())
+            px = args[0].numel()
+            bound_ms, bound_by = bound(16 * px, {c: k * px for c, k in HARRIS_OPS_PER_PIXEL.items()})
+            kernel, plain = (lambda: harris_suppressed_cuda(*args, **kw)), \
+                (lambda: detection.harris_suppressed_plain(*args, **kw))
+        else:
+            dk = hamming_matrix_cuda(*args, **kw)
+            dp = masked_distance_matrix_plain(*args, **kw)
+            torch.cuda.synchronize()
+            equal, err = bool(torch.equal(dk, dp)), int((dk - dp).abs().max()) if dk.numel() else 0
+            outputs = dk.numel()
+            n_bytes = sum(x.numel() * x.element_size() for x in args if x is not None) + 4 * outputs
+            bound_ms, bound_by = bound(n_bytes, *({c: k * outputs for c, k in r.items()} for r in HAMMING_ROUTES))
+            kernel, plain = (lambda: hamming_matrix_cuda(*args, **kw)), \
+                (lambda: masked_distance_matrix_plain(*args, **kw))
+        out.append(dict(kernel=name, shape=shape, launches=n, equal=equal, max_abs_err=err,
+                        ms=device_ms(kernel, reps=5), plain_ms=device_ms(plain, reps=3, inner=1),
+                        bound_ms=bound_ms, bound_by=bound_by))
+    return out
+
+
+def check_app_revisit(dev: str, tmp: str) -> tuple:
+    """The revisit part: returns its line and the kernel shapes' log."""
+    import os
+
+    from okvis_tpu_torch import native
+    from okvis_tpu_torch.eval.ate import ate_rmse
+
+    t0 = time.perf_counter()
+    data = write_app_dataset(f"{tmp}/dataset")
+    write_s = time.perf_counter() - t0
+    mav0 = data["mav0"]
+    py_images, py_ms = decode_all(mav0, "python")
+    second, native_line = "python", dict(built=False)
+    try:
+        native.get_lib()
+    except native.NativeUnavailable as e:
+        print("app_native_build_error", json.dumps(str(e)))
+    else:
+        nat_images, nat_ms = decode_all(mav0, "native")
+        same = all(np.array_equal(a, b) for a, b in zip(py_images, nat_images))
+        native_line = dict(built=True, images_equal_python=same, decode_ms=dict(median=statistics.median(nat_ms),
+                                                                                 max=max(nat_ms)))
+        second = "native"
+    runs = []
+    for i, decoder in enumerate((APP_DECODER, second)):
+        os.makedirs(f"{tmp}/run{i}", exist_ok=True)
+        runs.append(run_app(mav0, f"{tmp}/run{i}", dev, decoder))
+    run = runs[0]
+    out, mgr = run.out, run.vio.posegraph
+
+    def frame_ms(r):
+        gaps = np.diff(r.published)[2:] * 1e3
+        return dict(median=float(np.median(gaps)), max=float(gaps.max()))
+    events = [dict(vars(e)) for e in mgr.loop_events]
+    line = dict(part="revisit", frames=POSEGRAPH_RUNTIME["frames"], rig="2 x 752x480", keypoints=VIO_KEYPOINTS,
+                dtype="float32 (estimator), float64 (pose graph)", min_gap=POSEGRAPH_RUNTIME["min_gap"],
+                decoder=APP_DECODER, second_run_decoder=second,
+                **{k: out[k] for k in ("frames_fed", "frames_processed", "frames_per_s", "wall_s", "ate_rmse_m",
+                                       "ate_rmse_loop_m", "loop_closures", "posegraph_keyframes", "decoder_used")},
+                frame_ms=dict(frame_ms(run), note="host ms between successive optimized states, from the third on"),
+                stages=run.stages, events=events, loop_edges=loop_edge_errors(mgr),
+                decode_ms=dict(median=statistics.median(py_ms), max=max(py_ms)), native=native_line,
+                write_ms_per_image=data["write_ms_per_image"], png_encode_ms=data["png_encode_ms"],
+                write_seconds=write_s, dataset_sha256=data["sha256"], expected_content_sha256=APP_DATASET_SHA256,
+                launches=run.launches, launches_by_shape=shapes_of(run.shapes),
+                rerun_tum_equal=runs[1].tum == run.tum, rerun_loop_tum_equal=runs[1].loop == run.loop,
+                second_run=dict(frame_ms=frame_ms(runs[1]), stages=runs[1].stages,
+                                **{k: runs[1].out[k] for k in ("ate_rmse_m", "loop_closures", "frames_per_s", "wall_s",
+                                                               "decoder_used")}),
+                jax_cpu_reference=JAX_APP["revisit"])
+    # the card's own ATE of the .tum file, as a user's evaluator would read it
+    rows = np.loadtxt(io.BytesIO(run.tum))
+    gt_ts = (data["traj"].ts * 1e9).astype(np.int64) + 1_400_000_000_000_000_000
+    line["ate_from_tum_m"] = ate_rmse(np.round(rows[:, 0] * 1e9).astype(np.int64), rows[:, 1:4], gt_ts,
+                                      data["traj"].r)
+    fails = []
+    if data["sha256"]["content"] != APP_DATASET_SHA256:
+        fails.append(f"dataset content sha256 {data['sha256']['content']} (the sandbox's CPU: {APP_DATASET_SHA256})")
+    if out["frames_processed"] != out["frames_fed"] or out["frames_fed"] != POSEGRAPH_RUNTIME["frames"]:
+        fails.append(f"{out['frames_processed']} of {out['frames_fed']} frames processed")
+    ref, gates = JAX_APP["revisit"], APP_GATES
+    if out["ate_rmse_m"] is None or out["ate_rmse_m"] > ref["ate_rmse_m"] + gates["ate_margin_m"]:
+        fails.append(f"ATE {out['ate_rmse_m']} against the JAX float32 CPU run's {ref['ate_rmse_m']}")
+    if abs(out["loop_closures"] - ref["loop_closures"]) > gates["loops_margin"] or not out["loop_closures"]:
+        fails.append(f"{out['loop_closures']} loop closures (JAX float32 CPU run: {ref['loop_closures']})")
+    if abs(out["posegraph_keyframes"] - ref["posegraph_keyframes"]) > gates["keyframes_margin"]:
+        fails.append(f"{out['posegraph_keyframes']} pose-graph keyframes (JAX: {ref['posegraph_keyframes']})")
+    bad = [e for e in line["loop_edges"] if e["translation_m"] > gates["rel_pose_m"]
+           or e["rotation_rad"] > gates["rel_pose_rad"]]
+    if bad or len(line["loop_edges"]) != out["loop_closures"]:
+        fails.append(f"loop edges {line['loop_edges']} for {out['loop_closures']} loop closures")
+    if not (line["rerun_tum_equal"] and line["rerun_loop_tum_equal"]):
+        fails.append("the second run's TUM files differ from the first's")
+    if native_line["built"] and not native_line["images_equal_python"]:
+        fails.append("the native decoder's images differ from the python decoder's")
+    if out["decoder_used"] != {APP_DECODER: 2 * POSEGRAPH_RUNTIME["frames"]}:
+        fails.append(f"decoders used {out['decoder_used']}")
+    fails += [f"kernels of the path: {f}" for f in shape_count_fails(run.launches, run.shapes)]
+    line["fails"] = fails
+    return line, run.shapes
+
+
+def textured_frames():
+    """The textured flight's frames, rendered on the CPU by the port's
+    render_textured_plane: (trajectory, frame times, images, ground truth),
+    with the IMU in the flipped body frame."""
+    import torch
+
+    from okvis_tpu_torch import kinematics as kin
+    from okvis_tpu_torch.datasets.synthetic import noise_texture, render_textured_plane, simulate_trajectory
+
+    cfg = APP_TEXTURED
+    rig = modes_rig("runtime", "cpu")
+    texture = noise_texture(cfg["texture_size"], cfg["texture_seed"])
+    traj = simulate_trajectory(duration=cfg["duration"], seed=cfg["traj_seed"], motion_scale=cfg["motion_scale"])
+    flip = np.asarray([1.0, -1.0, -1.0])  # the 180° roll about x negates y and z
+    q_down = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64)
+    frames = []
+    for fi in range(cfg["frames"]):
+        idx = int(round(fi * 0.1 * 200))
+        T_WS = kin.SE3(r=torch.from_numpy(traj.r[idx] + np.asarray([0.0, 0.0, cfg["height"]])),
+                       q=kin.quat_multiply(torch.from_numpy(traj.q[idx]), q_down))
+        frames.append(dict(t=fi * 0.1, r=T_WS.r.numpy(), images=[
+            render_textured_plane(rig.specs[c], rig.intrinsics[c], kin.compose(T_WS, rig.camera_T_SC(c)), texture,
+                                  plane_scale=cfg["plane_scale"]) for c in range(2)]))
+    return SimpleNamespace(traj=traj, gyro=traj.gyro * flip, acc=traj.acc * flip, frames=frames)
+
+
+def run_textured(scene, dev: str, tum_path: str) -> dict:
+    """The textured flight through ThreadedVio: the JAX test's feed (the IMU
+    up to 25 ms past a frame, both images, wait_idle) with timestamps
+    rounded to the ns; the trajectory written to `tum_path`."""
+    import torch
+
+    from okvis_tpu_torch.config import VioParameters
+    from okvis_tpu_torch.eval.ate import ate_rmse, write_tum
+    from okvis_tpu_torch.pipeline import ThreadedVio
+    from okvis_tpu_torch.utils.ids import IdProvider
+    from okvis_tpu_torch.utils.time import ns_from_sec
+
+    cfg = APP_TEXTURED
+    params = VioParameters()
+    params.optimization.max_num_keypoints = cfg["keypoints"]
+    params.optimization.detection_threshold = cfg["threshold"]
+    IdProvider.reset()
+    vio = ThreadedVio(params, rig=modes_rig("runtime", dev), blocking=True, dtype=torch.float32, device=dev)
+    keypoints, frame_ms = [], []
+    detect = vio.frontend.detect_and_describe_multi
+
+    def counted(*args, **kw):
+        frames = detect(*args, **kw)
+        keypoints.append([int(f.mask_np.sum()) for f in frames])
+        return frames
+
+    vio.frontend.detect_and_describe_multi = counted
+    ts_ns = [int(ns_from_sec(t)) for t in scene.traj.ts]
+    imu_i = 0
+    try:
+        for fr in scene.frames:
+            t_ns = int(ns_from_sec(fr["t"]))
+            t0 = time.perf_counter()
+            while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
+                vio.add_imu_measurement(ts_ns[imu_i], scene.gyro[imu_i], scene.acc[imu_i])
+                imu_i += 1
+            for c, image in enumerate(fr["images"]):
+                vio.add_image(t_ns, c, image)
+            vio.wait_idle(timeout=120)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        vio.shutdown()
+    states = vio.trajectory
+    est_ts = np.asarray([s.timestamp_ns for s in states], np.int64)
+    est_p = np.stack([s.T_WS.r.numpy() for s in states]) if states else np.zeros((0, 3))
+    gt_ts = np.asarray([int(ns_from_sec(fr["t"])) for fr in scene.frames], np.int64)
+    gt_p = np.stack([fr["r"] for fr in scene.frames])
+    write_tum(tum_path, est_ts, est_p, np.stack([s.T_WS.q.numpy() for s in states]) if states else np.zeros((0, 4)))
+    with open(tum_path, "rb") as f:
+        tum = f.read()
+    return dict(frames=len(scene.frames), frames_tracked=len(states), ate_m=ate_rmse(est_ts, est_p, gt_ts, gt_p),
+                landmarks=vio.estimator.num_landmarks(), keyframes=sum(s.is_keyframe for s in states),
+                keypoints_per_frame=keypoints, frame_ms=frame_ms, tum=tum)
+
+
+def check_app_textured(dev: str) -> tuple:
+    """The textured part: the flight rendered once, run twice. Returns its
+    line and the kernel shapes' log of the first run."""
+    import tempfile
+
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    t0 = time.perf_counter()
+    scene = textured_frames()
+    render_s = time.perf_counter() - t0
+    harris_suppressed_cuda.launches = 0
+    hamming_matrix_cuda.launches = 0
+    shapes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with kernel_shapes(shapes):
+            first = run_textured(scene, dev, f"{tmp}/first.tum")
+        launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+        second = run_textured(scene, dev, f"{tmp}/second.tum")
+    kp = np.asarray(first["keypoints_per_frame"])
+    ms = first["frame_ms"][2:]
+    line = dict(part="textured", **{k: v for k, v in APP_TEXTURED.items() if k != "frames"},
+                texture="datasets.synthetic.noise_texture", render_seconds=render_s,
+                **{k: first[k] for k in ("frames", "frames_tracked", "ate_m", "landmarks", "keyframes")},
+                keypoints_per_frame=dict(mean=float(kp.mean()), min=int(kp.min()), max=int(kp.max())),
+                frame_ms=dict(median=statistics.median(ms), max=max(ms)), launches=launches,
+                launches_by_shape=shapes_of(shapes), rerun_tum_equal=first["tum"] == second["tum"],
+                jax_cpu_reference=JAX_APP["textured"])
+    ref, gates = JAX_APP["textured"], APP_GATES
+    # the JAX test's bounds, or the JAX package's own reading where it
+    # misses one of them on this texture
+    want_frames = min(gates["textured_frames"], ref["frames_tracked"])
+    want_ate = max(gates["textured_ate_m"], ref["ate_m"] + gates["ate_margin_m"])
+    want_landmarks = min(gates["textured_landmarks"], ref["landmarks"] - 1)
+    fails = []
+    if first["frames_tracked"] < want_frames:
+        fails.append(f"{first['frames_tracked']} of {first['frames']} frames tracked (want {want_frames})")
+    if first["ate_m"] is None or first["ate_m"] >= want_ate:
+        fails.append(f"ATE {first['ate_m']} (bound {want_ate})")
+    if first["landmarks"] <= want_landmarks:
+        fails.append(f"{first['landmarks']} landmarks (want more than {want_landmarks})")
+    if not line["rerun_tum_equal"]:
+        fails.append("the rerun's trajectory differs")
+    fails += [f"kernels of the path: {f}" for f in shape_count_fails(launches, shapes)]
+    line["fails"] = fails
+    return line, shapes
+
+
+def check_app(dev: str = "cuda") -> dict:
+    """The app phase: the revisit part (the EuRoC app) and the textured
+    part, each with its kernels held to their plain versions at every shape
+    it launched them at. Prints an `app` line a part and the kernel entries
+    of each (`app_kernels`, `app_textured_kernels`); returns the launches
+    and kernel entries for the `kernels` line."""
+    import tempfile
+
+    fails = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        revisit, log = check_app_revisit(dev, tmp)
+        revisit["seconds"] = time.perf_counter() - t0
+        print("app", json.dumps(revisit))
+        entries = app_kernel_entries(log) if dev == "cuda" else []
+        del log
+    print("app_kernels", json.dumps(entries))
+    t0 = time.perf_counter()
+    textured, log = check_app_textured(dev)
+    textured["seconds"] = time.perf_counter() - t0
+    print("app", json.dumps(textured))
+    textured_entries = app_kernel_entries(log) if dev == "cuda" else []
+    del log
+    print("app_textured_kernels", json.dumps(textured_entries))
+    fails += [f"revisit: {f}" for f in revisit["fails"]] + [f"textured: {f}" for f in textured["fails"]]
+    fails += [f"{part}: {e['kernel']} at {e['shape']} differs from its plain version"
+              for part, es in (("revisit", entries), ("textured", textured_entries)) for e in es if not e["equal"]]
+    if fails:
+        raise SmokeError("app phase: " + "; ".join(fails))
+    return dict(launches=dict(app=revisit["launches"], app_textured=textured["launches"]),
+                entries=dict(app_by_shape=entries, app_textured_by_shape=textured_entries))
+
+
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
     compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
@@ -2796,14 +3332,23 @@ def main() -> int:
     t0 = time.perf_counter()
     posegraph = check_posegraph()
     print(f"posegraph_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    app = check_app()
+    print(f"app_seconds {time.perf_counter() - t0:.2f}")
     # `launches` is the runtime's (the main path, through ThreadedVio); the
     # other paths' counts stay beside it
     for k, name in zip(kernels, ("harris_nms", "hamming")):
         k["launches_by_path"] = dict(vision=k["launches"], estimator=est_launches[name], vio=vio["launches"][name],
                                      runtime=runtime["launches"][name],
                                      **{m: modes["launches"][m][name] for m in MODES},
-                                     **{p: n[name] for p, n in posegraph["launches"].items()})
+                                     **{p: n[name] for p, n in posegraph["launches"].items()},
+                                     **{p: n[name] for p, n in app["launches"].items()})
         k["launches"] = runtime["launches"][name]
+        # each app part's launches at each shape, each held to the plain version
+        for part, entries in app["entries"].items():
+            k[part] = [{key: e[key] for key in ("shape", "launches", "equal", "max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by")}
+                       for e in entries if e["kernel"] == name]
     kernels[0]["octave_shapes"] = modes["kernels"]["harris_octaves"]
     kernels[1]["association"] = vio["association"]
     kernels[1]["mono_association"] = modes["kernels"]["hamming_mono_association"]

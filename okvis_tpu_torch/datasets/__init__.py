@@ -1,1 +1,2 @@
-"""Datasets (port of okvis_tpu.datasets): the synthetic world."""
+"""Datasets (port of okvis_tpu.datasets): the EuRoC ASL loader, PNG reading
+and writing, and the synthetic world."""

@@ -584,7 +584,7 @@ def vio_scenario(rig, n_frames: int = 20, frame_dt: float = 0.1) -> VioScenario:
     return render_scenario(rig, traj, lms, n_frames, frame_dt)
 
 
-def revisit_scenario(rig, n_frames: int = 27, period: float = 2.0, frame_dt: float = 0.1) -> VioScenario:
+def revisit_world(n_frames: int = 27, period: float = 2.0, frame_dt: float = 0.1) -> Tuple[SyntheticImu, np.ndarray]:
     """A world the rig sees all around and then again: one turn about the
     sensor's x axis every `period` s (the cameras look up, then sideways,
     down and up again) and a position of (0.1, 0.05, 0) m ⊙ (1 - cos ωt),
@@ -592,13 +592,18 @@ def revisit_scenario(rig, n_frames: int = 27, period: float = 2.0, frame_dt: flo
     frames repeat frame 0 on, once the start's landmarks have left the view.
     260 landmarks at 2-4 m (seed 32; at 4-8 m the 11 cm stereo baseline
     leaves the first keyframes' landmarks too coarse for a loop edge within
-    0.02 rad of the VIO relative pose), rendered by render_scenario."""
+    0.02 rad of the VIO relative pose). Returns (trajectory, landmarks)."""
     w = 2 * np.pi / period
     sway = np.asarray([0.1, 0.05, 0.0])
     traj = simulate_trajectory(duration=n_frames * frame_dt, seed=31,
                                omega_fn=lambda t: np.array([w, 0.0, 0.0]),
                                acc_w_fn=lambda t: sway * w * w * np.cos(w * t))
-    lms = make_landmarks(traj, 260, seed=32, radius=(2.0, 4.0))
+    return traj, make_landmarks(traj, 260, seed=32, radius=(2.0, 4.0))
+
+
+def revisit_scenario(rig, n_frames: int = 27, period: float = 2.0, frame_dt: float = 0.1) -> VioScenario:
+    """revisit_world's frames, rendered by render_scenario."""
+    traj, lms = revisit_world(n_frames, period, frame_dt)
     return render_scenario(rig, traj, lms, n_frames, frame_dt)
 
 
@@ -630,6 +635,133 @@ def render_scenario(rig, traj: SyntheticImu, landmarks: np.ndarray, n_frames: in
             for c in range(rig.num_cameras)])
         times.append(t)
     return VioScenario(traj=traj, landmarks=landmarks, times=times, images=images)
+
+
+def _cpu64(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().cpu().double()
+
+
+def write_euroc_format(
+    out_dir: str,
+    traj: SyntheticImu,
+    landmark_pts: np.ndarray,
+    rig,
+    frame_dt: float = 0.1,
+    n_frames: int = 10,
+    epoch_ns: int = 1_400_000_000_000_000_000,
+) -> str:
+    """Write the synthetic world as an EuRoC ASL directory (mav0/...): per
+    camera PNG frames named by nanosecond timestamp, imu0/data.csv, and the
+    ground truth, the files and text of the JAX package's writer, so the
+    EuRoC loader and the app run end to end without the real dataset.
+    Frames are rendered by render_world_image on the CPU in float64 (any
+    device: the rig is read back to the CPU), truncated to uint8 and written
+    by png.write_png_gray. Returns the mav0 path."""
+    import os
+
+    from .png import write_png_gray
+
+    mav0 = os.path.join(out_dir, "mav0")
+    os.makedirs(os.path.join(mav0, "imu0"), exist_ok=True)
+    with open(os.path.join(mav0, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for i in range(len(traj.ts)):
+            t = epoch_ns + int(round(traj.ts[i] * 1e9))
+            g, a = traj.gyro[i], traj.acc[i]
+            f.write(f"{t},{g[0]},{g[1]},{g[2]},{a[0]},{a[1]},{a[2]}\n")
+
+    gt_dir = os.path.join(mav0, "state_groundtruth_estimate0")
+    os.makedirs(gt_dir, exist_ok=True)
+    with open(os.path.join(gt_dir, "data.csv"), "w") as f:
+        f.write("#timestamp,p,q,v\n")
+        for i in range(len(traj.ts)):
+            t = epoch_ns + int(round(traj.ts[i] * 1e9))
+            p, q, v = traj.r[i], traj.q[i], traj.v[i]
+            # EuRoC order: p(3), q(wxyz), v(3)
+            f.write(f"{t},{p[0]},{p[1]},{p[2]},{q[3]},{q[0]},{q[1]},{q[2]},{v[0]},{v[1]},{v[2]}\n")
+
+    imu_rate = int(round(1.0 / (traj.ts[1] - traj.ts[0])))
+    for cam in range(rig.num_cameras):
+        d = os.path.join(mav0, f"cam{cam}", "data")
+        os.makedirs(d, exist_ok=True)
+        T_SC = kin.SE3(r=_cpu64(rig.T_SC.r[cam]), q=_cpu64(rig.T_SC.q[cam]))
+        for fi in range(n_frames):
+            t = fi * frame_dt
+            idx = int(round(t * imu_rate))
+            if idx >= len(traj.ts):
+                break
+            T_WS = kin.SE3(r=torch.from_numpy(traj.r[idx]), q=torch.from_numpy(traj.q[idx]))
+            img = render_world_image(rig.specs[cam], _cpu64(rig.intrinsics[cam]), kin.compose(T_WS, T_SC),
+                                     landmark_pts)
+            ts_ns = epoch_ns + int(round(t * 1e9))
+            write_png_gray(os.path.join(d, f"{ts_ns}.png"), img.astype(np.uint8))
+    return mav0
+
+
+def render_textured_plane(
+    spec: CameraSpec,
+    intrinsics: torch.Tensor,
+    T_WC: kin.SE3,
+    texture: np.ndarray,  # (Ht, Wt) float grayscale
+    plane_z: float = 0.0,
+    plane_scale: float = 100.0,  # texture pixels per world meter
+    background: float = 90.0,
+) -> np.ndarray:
+    """Render the camera viewing a textured plane z = plane_z (world).
+
+    Every camera pixel's ray is intersected with the plane and bilinearly
+    sampled from the texture, wrapped so the plane is endless (rays that
+    meet the plane behind or within 5 cm of the camera get the background
+    value); no occlusion. Back-projection runs in float64 on the CPU
+    whatever the device of `intrinsics` and `T_WC`; the rest is numpy, as in
+    the JAX package."""
+    H, W = spec.height, spec.width
+    us, vs = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    uv = torch.from_numpy(np.stack([us.ravel(), vs.ravel()], axis=-1)).double()
+    rays_C = pinhole.back_project(spec, _cpu64(intrinsics), uv).numpy()  # (N, 3)
+    C_WC = kin.quat_to_matrix(_cpu64(T_WC.q)).numpy()
+    o_W = _cpu64(T_WC.r).numpy()
+    d_W = rays_C @ C_WC.T  # (N, 3)
+    dz = d_W[:, 2]
+    t = (plane_z - o_W[2]) / np.where(np.abs(dz) < 1e-9, 1e-9, dz)
+    hit = t > 0.05
+    p_W = o_W[None, :] + t[:, None] * d_W
+    tx = p_W[:, 0] * plane_scale
+    ty = p_W[:, 1] * plane_scale
+    Ht, Wt = texture.shape
+    x0 = np.floor(tx).astype(np.int64)
+    y0 = np.floor(ty).astype(np.int64)
+    fx = (tx - x0).astype(np.float32)
+    fy = (ty - y0).astype(np.float32)
+    x0m, y0m = x0 % Wt, y0 % Ht
+    x1m, y1m = (x0 + 1) % Wt, (y0 + 1) % Ht
+    v = (
+        texture[y0m, x0m] * (1 - fx) * (1 - fy)
+        + texture[y0m, x1m] * fx * (1 - fy)
+        + texture[y1m, x0m] * (1 - fx) * fy
+        + texture[y1m, x1m] * fx * fy
+    )
+    img = np.where(hit, v, background).astype(np.float32)
+    return img.reshape(H, W)
+
+
+def noise_texture(size: int = 1024, seed: int = 0) -> np.ndarray:
+    """A (size, size) float32 grayscale texture in [0, 255] that tiles
+    seamlessly: white noise from numpy's generator `seed`, smoothed by a
+    periodic Gaussian of 1, 3 and 9 texture pixels, each scale normalized
+    and weighted 1, 0.8 and 0.6, summed and stretched to a mean of 128 and a
+    standard deviation of 48. Texture at several scales for
+    render_textured_plane, made in code."""
+    rng = np.random.default_rng(seed)
+    f = np.fft.fftfreq(size)
+    r2 = f[:, None] ** 2 + f[None, :] ** 2
+    out = np.zeros((size, size))
+    for sigma, w in ((1.0, 1.0), (3.0, 0.8), (9.0, 0.6)):
+        noise = np.fft.fft2(rng.normal(size=(size, size)))
+        layer = np.fft.ifft2(noise * np.exp(-2.0 * (np.pi * sigma) ** 2 * r2)).real
+        out += w * layer / layer.std()
+    out = 128.0 + 48.0 * (out - out.mean()) / out.std()
+    return np.clip(out, 0.0, 255.0).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,10 @@ packages see the same images:
   tests/test_pipeline.py:455), the estimator's camera-1 translation 4, -3,
   2 mm off the truth that rendered the frames (tests/test_estimator.py:204);
 - mono: camera 0 alone on tests/test_vision_e2e.py:158's gentle-motion
-  world (trajectory seed 41, 300 landmarks at 4-9 m, seed 42), 60 frames.
+  world (trajectory seed 41, 300 landmarks at 4-9 m, seed 42), 60 frames;
+  a third argument FRAMES:FED renders a world of FRAMES frames (its
+  trajectory and landmark cloud depend on the length) and feeds the first
+  FED (chip_smoke.py's modes phase feeds 40 of 60: 60:40).
 
 Prints one JSON line a mode: frames tracked, the ATE (Umeyama-aligned,
 eval/ate.py), landmarks and keyframes at the end, the frame after which
@@ -27,7 +30,7 @@ tracking was initialized, per-frame position errors, for per_state the
 camera-1 calibration error before and after (the newest state's block),
 and wall seconds.
 
-    JAX_PLATFORMS=cpu python scripts/jax_modes.py float32 [pyramid,per_state,mono]
+    JAX_PLATFORMS=cpu python scripts/jax_modes.py float32 [pyramid,per_state,mono] [FRAMES:FED]
 
 Several minutes on a CPU, most of them compiling and rendering.
 """
@@ -41,6 +44,7 @@ import jax
 
 DTYPE = sys.argv[1] if len(sys.argv) > 1 else "float32"
 MODES = sys.argv[2].split(",") if len(sys.argv) > 2 else ["pyramid", "per_state", "mono"]
+MONO_FRAMES, MONO_FED = map(int, (sys.argv[3] if len(sys.argv) > 3 else "60:60").split(":"))
 if DTYPE not in ("float32", "float64"):
     sys.exit(f"usage: {sys.argv[0]} float32|float64 [modes]")
 jax.config.update("jax_platforms", "cpu")
@@ -66,7 +70,7 @@ from okvis_tpu_torch.datasets import synthetic as port_synthetic  # noqa: E402
 N_KEYPOINTS = 400
 NS = 1_000_000_000
 # the modes phase's settings (chip_smoke.py MODES_*)
-STEREO_FRAMES, MONO_FRAMES = 20, 60
+STEREO_FRAMES = 20
 MASK_LEFT, MASK_BOTTOM = 64, 48
 OFFSET = np.asarray([0.004, -0.003, 0.002])
 PER_STATE_SIGMAS = dict(sigma_c_relative_translation=1e-4, sigma_c_relative_orientation=1e-5,
@@ -120,7 +124,8 @@ def run(mode: str) -> dict:
     ts_ns = [int(ns_from_sec(t)) for t in traj.ts]
     imu_i, init_frame = 0, None
     t0 = time.perf_counter()
-    for fi, (t, images) in enumerate(zip(scene.times, scene.images)):
+    fed = MONO_FED if mode == "mono" else len(scene.times)
+    for fi, (t, images) in enumerate(list(zip(scene.times, scene.images))[:fed]):
         t_ns = int(ns_from_sec(t))
         while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
             vio.add_imu_measurement(ts_ns[imu_i], traj.gyro[imu_i], traj.acc[imu_i])
@@ -137,7 +142,7 @@ def run(mode: str) -> dict:
     est_p = np.stack([np.asarray(s.T_WS.r, np.float64) for s in states])
     err = lambda t, r: float(np.linalg.norm(r - traj.r[int(round(t / NS * 200))]))  # noqa: E731
     out = dict(
-        mode=mode, dtype=DTYPE, device="cpu", frames=len(scene.times), frames_tracked=len(states),
+        mode=mode, dtype=DTYPE, device="cpu", frames=len(scene.times), frames_fed=fed, frames_tracked=len(states),
         ate_m=ate_rmse(est_ts, est_p, (traj.ts * NS).astype(np.int64), traj.r),
         landmarks=vio.estimator.num_landmarks(), keyframes=sum(s.is_keyframe for s in states),
         initialized_at_frame=init_frame, position_error_m=[err(s.timestamp_ns, p) for s, p in zip(states, est_p)],

@@ -161,6 +161,30 @@ def test_read_config_extension_blocks(tmp_path):
     assert p.posegraph.enabled and p.posegraph.min_gap == 12 and p.posegraph.cull_redundant
 
 
+@pytest.mark.parametrize("source", ["euroc", "extensions", "built_in_code"])
+def test_write_config_round_trips_through_both_readers(tmp_path, source):
+    """config.yaml_writer.write_config of a tree read from the stock layout,
+    or built in code with the synthetic rig's cameras: read_config of either
+    package gives the tree back exactly."""
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.config.yaml_writer import cameras_from_rig, write_config
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig
+
+    if source == "built_in_code":
+        p = VioParameters()
+        specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+        p.cameras = cameras_from_rig(NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr))
+        p.posegraph.enabled, p.posegraph.min_gap, p.optimization.max_num_keypoints = True, 2, 400
+    else:
+        src = tmp_path / "stock.yaml"
+        src.write_text(EUROC_YAML + (EXTENSIONS if source == "extensions" else ""))
+        p = read_config(str(src))
+    path = str(tmp_path / "written.yaml")
+    write_config(p, path)
+    assert _plain(read_config(path)) == _plain(p)
+    assert _plain(jread_config(path)) == _plain(p)
+
+
 @pytest.mark.parametrize("compute_overlaps", [True, False])
 def test_build_rig_equals_jax(yaml_path, compute_overlaps):
     got = build_rig(read_config(yaml_path), compute_overlaps=compute_overlaps, device="cpu")

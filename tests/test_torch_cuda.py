@@ -556,3 +556,29 @@ def test_pose_graph_on_the_card_matches_cpu_and_repeats(cuda):
     got, want = (db.query(q, np.ones(64, bool), {19}) for db in dbs)
     assert got[:2] == want[:2] and got[0] == 5
     np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_euroc_app_runs_on_the_card(cuda, tmp_path):
+    """apps.run_euroc.run on a 6-frame dataset the port writes (the
+    revisit world at the EuRoC rig), on the card in float32 with loop
+    closure and parameters built in code: every frame processed, both
+    kernels launched, the ATE under tests/test_euroc_app.py's 0.2 m."""
+    from chip_smoke import app_params, modes_rig
+    from okvis_tpu_torch.apps.run_euroc import run
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import euroc_stereo_rig, revisit_world, write_euroc_format
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    specs, T_SC, intr = euroc_stereo_rig(device="cpu")
+    traj, lms = revisit_world(6)
+    mav0 = write_euroc_format(str(tmp_path / "ds"), traj, lms, NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr),
+                              n_frames=6)
+    rig = modes_rig("runtime", "cuda")
+    h0, m0 = harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
+    out = run(app_params(rig), mav0, dtype=torch.float32, trajectory_out=str(tmp_path / "t.tum"), rig=rig,
+              loop_closure=True, device="cuda", decoder="python")
+    assert out["frames_processed"] == out["frames_fed"] == 6
+    assert harris_suppressed_cuda.launches - h0 == 6 and hamming_matrix_cuda.launches > m0
+    assert out["ate_rmse_m"] is not None and out["ate_rmse_m"] < 0.2
+    assert out["posegraph_keyframes"] >= 2 and (tmp_path / "t.tum.loop").exists()
