@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the okvis_tpu_torch vision slice, back end, estimator, the
 per-frame VIO loop, the runtime (ThreadedVio), its estimator modes, the
-pose-graph layer and the EuRoC app on one CUDA card and check them.
+pose-graph layer, the EuRoC app and the batched and sharded BA on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -136,21 +137,43 @@ pose-graph layer and the EuRoC app on one CUDA card and check them.
    shape, held to the JAX test's bounds and the rerun's trajectory, and
    each kernel to its plain version at every shape that run launched it at
    (`app_textured_kernels`). Each part gates that its launches by shape
-   add up to its launch counts. Prints an `app` line a part.
+   add up to its launch counts. Prints an `app` line a part;
+17. runs the distributed phase (check_distributed, DISTRIBUTED) in four
+   parts: sharded, make_sharded_optimizer on the back-end window in
+   float64 on one-card meshes of 1, 2, 4 and 8 shards and a 2 x 4
+   ("host", "map") mesh, each against the card's optimize_window at
+   tests/test_parallel.py's tolerances, and in float32 at 4 shards against
+   OPTIMIZE_GATES, with the observations shard_problem shed (none allowed),
+   a bitwise rerun, ms and launches a call; two_process, a 2 x 2 mesh
+   across two processes joined by torch.distributed over gloo on the card
+   (tests/torch_multiproc_worker.py, killed on a timeout) against the
+   single-device solve; batched, optimize_windows_batched at B = 1, 4, 16
+   copies of the window against each window's own solve (1e-9 in float64,
+   OPTIMIZE_GATES in float32), ms a window and launches a call; runtime,
+   the runtime phase's first 12 frames through ThreadedVio with the window
+   sharded over 4 shards on the card, held to the JAX package's float32
+   CPU run on a 4-device mesh (JAX_DISTRIBUTED), with a bitwise rerun of
+   its first 6 frames, each kernel held to its plain version at every
+   shape it launched at (`distributed_kernels`). Prints a `distributed`
+   line a part.
+
+Every launch count by shape comes from one recorder, kernel_shapes.
 
 Prints the `kernels` JSON line (each kernel's `launches` from the runtime's
-first run, the other paths' in `launches_by_path`), and as its last line
+first run, the other paths' in `launches_by_path`; each app part's and the
+sharded runtime's launches by shape beside their plain versions and the
+±1 float32 product), and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
 ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import functools
 import io
 import json
+import logging
 import multiprocessing
 import re
 import statistics
@@ -871,6 +894,25 @@ def check_backend(dev, sync_free):
     return stages, eqs, cfg
 
 
+def device_kernels(prof) -> tuple:
+    """(launches, summed device ms) of the kernels a finished torch.profiler
+    run traced, read from its raw trace events. prof.events() and
+    key_averages() read the same numbers but first build an event object
+    for every trace event, seconds of host time for each 40,000-launch
+    estimator frame (scripts/torch_profiler_cost.py, PERF.md)."""
+    import torch
+
+    kern = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(kern), sum(e.duration_ns() for e in kern) / 1e6
+
+
+def profile_summary(prof, frames: int, wall_ms: float) -> dict:
+    """A profiled window's device busy share and launches a frame."""
+    launches, kernel_ms = device_kernels(prof)
+    return dict(frames=frames, wall_ms=wall_ms, kernel_ms=kernel_ms, device_busy_share=kernel_ms / wall_ms,
+                launches_per_frame=launches / frames)
+
+
 def profile_call(fn, top: int = 0) -> dict:
     """One call under torch.profiler: its device kernels' summed time, their
     launches, and the `top` kernels by device time."""
@@ -881,11 +923,11 @@ def profile_call(fn, top: int = 0) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    out = dict(kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
-               launches=sum(e.count for e in kernels))
+    launches, kernel_ms = device_kernels(prof)
+    out = dict(kernel_ms=kernel_ms, launches=launches)
     if top:
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        kernels.sort(key=lambda e: -e.self_device_time_total)
         out["top"] = [dict(kernel=e.key[:80], device_ms=e.self_device_time_total / 1e3, calls=e.count)
                       for e in kernels[:top]]
     return out
@@ -1050,10 +1092,7 @@ def run_estimator(variant: str, dev: str, dtype, frames, init, profile: bool = F
         if prof is not None and f.frame_id == b - 1:
             wall_ms = 1e3 * (time.perf_counter() - t_prof)
             prof.__exit__(None, None, None)
-            kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-            kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            summary = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms, device_busy_share=kernel_ms / wall_ms,
-                           launches_per_frame=sum(e.count for e in kernels) / (b - a))
+            summary = profile_summary(prof, b - a, wall_ms)
             prof = None
     return est, rows, summary
 
@@ -1370,11 +1409,7 @@ def run_vio(scene, dev: str = "cuda", profile: bool = False, sync_check: bool = 
             if prof is not None and fi == b - 1:
                 wall_ms = 1e3 * (time.perf_counter() - t_prof)
                 prof.__exit__(None, None, None)
-                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
-                summary = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
-                               device_busy_share=kernel_ms / wall_ms,
-                               launches_per_frame=sum(e.count for e in kern) / (b - a))
+                summary = profile_summary(prof, b - a, wall_ms)
                 prof = None
     return est, fe, rows, trajectory, summary, log
 
@@ -1595,21 +1630,23 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
     each query's best candidate and score). Per frame: the host ms from the first
     add_image to wait_idle's return, syncstats, the kernels' launches, the
     association-shape Hamming launches, and the keypoint-to-landmark ids;
-    over the run, the (C, H, W) of every Harris launch, the association
+    over the run, both kernels' launches by shape (kernel_shapes: `shapes`,
+    and the pose-graph layer's alone, `posegraph_shapes`), the association
     batches' shapes and the last batch's arguments. With `profile`, the
     frames of RUNTIME_PROFILE_FRAMES run under torch.profiler; with
     `checkpoint_dir`, runtime_checkpoint runs after RUNTIME_CHECKPOINT_AFTER
     frames; with `snapshot_after`, the estimator's landmark ids and table
-    after that many frames are kept (`snapshot`). Returns a namespace of
-    the run's records."""
+    after that many frames are kept (`snapshot`). "distributed" is the
+    runtime's rig and parameters with the estimator's window sharded over
+    DISTRIBUTED["runtime_shards"] shards on `dev`
+    (Estimator.enable_distributed before the first frame). Returns a
+    namespace of the run's records."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity
 
-    from okvis_tpu_torch.frontend import detection, kernels
-    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
-    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+    from okvis_tpu_torch.frontend import kernels
     from okvis_tpu_torch.pipeline import ThreadedVio
     from okvis_tpu_torch.utils import syncstats
     from okvis_tpu_torch.utils.ids import IdProvider
@@ -1621,12 +1658,16 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
     IdProvider.reset()
     Timing.reset()
     vio = ThreadedVio(params, rig=rig, blocking=True, dtype=torch.float32, device=dev)
+    if mode == "distributed":
+        from okvis_tpu_torch.parallel import make_mesh
+
+        vio.estimator.enable_distributed(mesh=make_mesh(devices=[dev] * DISTRIBUTED["runtime_shards"]))
     if mode == "pyramid":
         vio.frontend.cfg.detection_masks = (modes_mask(),) * rig.num_cameras
     out = SimpleNamespace(vio=vio, rows=[], published=[], transferred=[], mfs=[], checkpoint=None, profile=None,
-                          stages=None, csv_rows=None, harris_shapes=[], assoc_shapes=set(), assoc_args=None,
-                          calibration=None, posegraph_feeds=[], posegraph_queries=[], loop_callbacks=[],
-                          snapshot=None)
+                          stages=None, csv_rows=None, shapes={}, assoc_shapes=set(), assoc_args=None,
+                          calibration=None, posegraph_feeds=[], posegraph_shapes={}, posegraph_queries=[],
+                          loop_callbacks=[], snapshot=None)
     if vio.posegraph is not None:
         vio.loop_closure_callback = out.loop_callbacks.append
         feed, query = vio._feed_posegraph, vio.posegraph.db.query
@@ -1639,9 +1680,10 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
         vio.posegraph.db.query = recorded_query
 
         def counted_feed(*args):
-            h0 = hamming_matrix_cuda.launches
-            feed(*args)
-            out.posegraph_feeds.append(hamming_matrix_cuda.launches - h0)
+            h0 = kernel_counts()["hamming"]
+            with kernel_shapes(out.posegraph_shapes):
+                feed(*args)
+            out.posegraph_feeds.append(kernel_counts()["hamming"] - h0)
 
         vio._feed_posegraph = counted_feed
     callbacks = mode == "runtime"
@@ -1656,7 +1698,7 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
 
     vio.frontend.data_association_and_initialization = record
     shapes = []
-    orig_mdm, orig_harris = kernels.masked_distance_matrix, detection.harris_suppressed
+    orig_mdm = kernels.masked_distance_matrix
 
     def mdm(*args):
         res = orig_mdm(*args)
@@ -1666,14 +1708,7 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
             out.assoc_shapes.add(tuple(res.shape))
         return res
 
-    def harris(img, *args, **kw):
-        res = orig_harris(img, *args, **kw)
-        if img.device.type == "cuda" and img.numel():  # routed to the kernel, which launched once
-            out.harris_shapes.append(tuple(img.shape))
-        return res
-
     kernels.masked_distance_matrix = mdm
-    detection.harris_suppressed = harris
     traj = scene.traj
     # the runtime's clock: seconds rounded to the nearest ns (the IMU
     # samples are multiples of 5 ms), the clock vio_imu_slice gives the vio
@@ -1685,7 +1720,9 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
     frames = list(zip(scene.times, scene.images))[:n_frames]
     tmp = tempfile.TemporaryDirectory()
     csv = f"{tmp.name}/state.csv"
+    recorder = contextlib.ExitStack()
     try:
+        recorder.enter_context(kernel_shapes(out.shapes))
         if callbacks:
             vio.set_state_csv_file(csv)
         for fi, (t, images) in enumerate(frames):
@@ -1695,7 +1732,7 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
                 prof.__enter__()
                 t_prof = time.perf_counter()
             syncstats.reset()
-            n_shapes, harris0, ham0 = len(shapes), harris_suppressed_cuda.launches, hamming_matrix_cuda.launches
+            n_shapes, counts0 = len(shapes), kernel_counts()
             t_ns = int(ns_from_sec(t))
             imu_ms = []
             while imu_i < len(ts_ns) and ts_ns[imu_i] <= t_ns + 25_000_000:
@@ -1713,7 +1750,8 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
             out.rows.append(dict(
                 frame=fi, frame_ms=frame_ms, imu_ms=imu_ms, syncs=syncstats.snapshot(), profiled=prof is not None, tracked=state is not None,
                 keyframe=bool(state is not None and state.is_keyframe), initialized=vio.frontend.is_initialized,
-                harris=harris_suppressed_cuda.launches - harris0, hamming=hamming_matrix_cuda.launches - ham0,
+                harris=kernel_counts()["harris_nms"] - counts0["harris_nms"],
+                hamming=kernel_counts()["hamming"] - counts0["hamming"],
                 hamming_association=sum(shapes[n_shapes:]), landmarks=vio.estimator.num_landmarks(),
                 position=None if state is None else float(np.linalg.norm(state.T_WS.r.numpy() - traj.r[i])),
                 lids=[f.landmark_ids.copy() for f in out.mfs[-1].frames] if state is not None else None))
@@ -1727,11 +1765,7 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
             if prof is not None and fi == b - 1:
                 wall_ms = 1e3 * (time.perf_counter() - t_prof)
                 prof.__exit__(None, None, None)
-                kern = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-                kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
-                out.profile = dict(frames=b - a, wall_ms=wall_ms, kernel_ms=kernel_ms,
-                                   device_busy_share=kernel_ms / wall_ms,
-                                   launches_per_frame=sum(e.count for e in kern) / (b - a))
+                out.profile = profile_summary(prof, b - a, wall_ms)
                 prof = None
         out.stages = {name: dict(count=acc.count, mean_ms=1e3 * acc.mean, min_ms=1e3 * acc.min, max_ms=1e3 * acc.max)
                       for name, acc in Timing._timers.items() if name in RUNTIME_STAGES}
@@ -1744,8 +1778,8 @@ def run_runtime(scene, dev: str = "cuda", mode: str = "runtime", n_frames=None, 
                 after=float(np.linalg.norm(est.r_SC_t[est._last_state().slot, 1] - true_r1)),
                 dense_dim=est.cfg.dense_dim)
     finally:
+        recorder.close()
         kernels.masked_distance_matrix = orig_mdm
-        detection.harris_suppressed = orig_harris
         try:
             vio.shutdown()
         finally:
@@ -2050,7 +2084,7 @@ def check_modes(dev: str = "cuda") -> dict:
             profile=run1.profile, launches=launches,
             launches_per_frame={k: v / len(run1.rows) for k, v in launches.items()},
             harris_per_frame=sorted({r["harris"] for r in run1.rows}),
-            harris_per_frame_by_shape=harris_by_shape(run1),
+            harris_per_frame_by_shape=shapes_of(run1.shapes, len(run1.rows)).get("harris_nms", {}),
             hamming_association_per_frame=sum(r["hamming_association"] for r in run1.rows[1:]) / (len(run1.rows) - 1),
             association_shapes=sorted(run1.assoc_shapes), calibration_error_m=run1.calibration,
             checkpoint=run1.checkpoint, frames_fed=run1.frames_fed, frames_processed=run1.frames_processed,
@@ -2071,13 +2105,6 @@ def check_modes(dev: str = "cuda") -> dict:
     if fails:
         raise SmokeError("modes phase: " + "; ".join(fails))
     return dict(launches={m: r["launches"] for m, r in results.items()}, kernels=kern)
-
-
-def harris_by_shape(run) -> dict:
-    """Harris launches a frame at each (C, H, W) the run launched it at,
-    from run_runtime's record of every launch."""
-    counts = collections.Counter(run.harris_shapes)
-    return {"x".join(map(str, shape)): n / len(run.rows) for shape, n in sorted(counts.items(), reverse=True)}
 
 
 def mode_settings(mode: str) -> dict:
@@ -2170,7 +2197,7 @@ def check_mode_kernels(runs) -> dict:
 
     images = torch.stack([torch.as_tensor(im) for im in vio_scene().images[-1]]).to("cuda", torch.float32)
     mask = torch.from_numpy(modes_mask()).to("cuda").expand(images.shape[0], 480, 752)
-    pyramid_launches = harris_by_shape(runs["pyramid"])
+    pyramid_launches = shapes_of(runs["pyramid"].shapes, len(runs["pyramid"].rows)).get("harris_nms", {})
     octaves, fails = [], False
     level = images.contiguous()
     for o in range(3):
@@ -2355,45 +2382,6 @@ POSEGRAPH_GATES = dict(pgo_rel=1e-6, dense_pcg_cost=1.001, loop_error_ratio=0.3,
                        rel_pose_m=0.05, rel_pose_rad=0.02, events_margin=1, accepted_margin=1)
 
 
-@contextlib.contextmanager
-def posegraph_hamming(log: list):
-    """Record the pose-graph layer's Hamming launches for the length of a
-    run: for each database query and each verification, the launches it
-    made (the counter's delta) and the shape it launched at (the query's
-    distance matrix; the verification's two descriptor sets)."""
-    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
-    from okvis_tpu_torch.posegraph import loop_closure, place_recognition
-
-    mdm, verify = place_recognition.masked_distance_matrix, loop_closure.verify_loop_candidate
-
-    def query(*args):
-        n0 = hamming_matrix_cuda.launches
-        res = mdm(*args)
-        log.append(dict(shape=tuple(res.shape), launches=hamming_matrix_cuda.launches - n0))
-        return res
-
-    def verification(*args, **kw):
-        n0 = hamming_matrix_cuda.launches
-        res = verify(*args, **kw)
-        log.append(dict(shape=(args[1].shape[0], args[4].shape[0]), launches=hamming_matrix_cuda.launches - n0))
-        return res
-
-    place_recognition.masked_distance_matrix, loop_closure.verify_loop_candidate = query, verification
-    try:
-        yield log
-    finally:
-        place_recognition.masked_distance_matrix, loop_closure.verify_loop_candidate = mdm, verify
-
-
-def by_shape(log: list) -> dict:
-    """posegraph_hamming's record summed by shape, keyed "NAxNB"."""
-    out = {}
-    for r in log:
-        key = "x".join(map(str, r["shape"]))
-        out[key] = out.get(key, 0) + r["launches"]
-    return out
-
-
 def pgo_reading(res, n: int) -> dict:
     """Costs, iterations and the sampled nodes (`nodes`) and their poses of
     a solve."""
@@ -2501,7 +2489,6 @@ def run_square_loop(dev: str):
     keyframe the host ms of add_keyframe (its device reads included) and
     the Hamming launches; the layer's Hamming launches by shape."""
     from okvis_tpu_torch.datasets.synthetic import square_loop_keyframes
-    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
     from okvis_tpu_torch.posegraph.manager import PoseGraphConfig, PoseGraphManager
 
     cfg = POSEGRAPH_LOOP
@@ -2511,16 +2498,16 @@ def run_square_loop(dev: str):
         node_capacity=cfg["node_capacity"], edge_capacity=cfg["edge_capacity"], db_kp_capacity=cfg["db_kp_capacity"],
         desc_words=16, desc_dtype=np.uint32), device=dev)
     k = cfg["landmarks"]
-    rows, log = [], []
-    with posegraph_hamming(log):
+    rows, log = [], {}
+    with kernel_shapes(log):
         for i, kf in enumerate(kfs):
-            h0 = hamming_matrix_cuda.launches
+            h0 = kernel_counts()["hamming"]
             t0 = time.perf_counter()
             mgr.add_keyframe(i, i * 10**8, *kf["vio"], kf["descriptors"], np.ones(k, bool), kf["bearings"],
                              kf["landmarks_W"], np.ones(k, bool))
             rows.append(dict(keyframe=i, ms=1e3 * (time.perf_counter() - t0),
-                             hamming=hamming_matrix_cuda.launches - h0))
-    return mgr, kfs, rows, by_shape(log)
+                             hamming=kernel_counts()["hamming"] - h0))
+    return mgr, kfs, rows, shapes_of(log).get("hamming", {})
 
 
 def loop_reading(mgr, kfs) -> dict:
@@ -2614,9 +2601,7 @@ def check_posegraph_runtime(dev: str) -> dict:
     scene = revisit_scene()
     harris_suppressed_cuda.launches = 0
     hamming_matrix_cuda.launches = 0
-    log = []
-    with posegraph_hamming(log):
-        run = run_runtime(scene, dev, "posegraph")
+    run = run_runtime(scene, dev, "posegraph")
     launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
     result = runtime_result(run, scene.traj)
     plain = run_runtime(scene, dev)
@@ -2625,7 +2610,7 @@ def check_posegraph_runtime(dev: str) -> dict:
     same = {k: bool(np.array_equal(v, plain_result["arrays"][k])) for k, v in result["arrays"].items()}
     frame_ms = [r["frame_ms"] for r in run.rows[2:]]
     plain_ms = [r["frame_ms"] for r in plain.rows[2:]]
-    feeds, shapes = run.posegraph_feeds, by_shape(log)
+    feeds, shapes = run.posegraph_feeds, shapes_of(run.posegraph_shapes).get("hamming", {})
     events = [dict(vars(e)) for e in mgr.loop_events]
     ref, gates = JAX_POSEGRAPH["runtime"], POSEGRAPH_GATES
     line = dict(**POSEGRAPH_RUNTIME, frames_fed=run.frames_fed, dtype="float32 (estimator), float64 (pose graph)",
@@ -2777,17 +2762,29 @@ APP_GATES = dict(ate_margin_m=0.003, loops_margin=1, keyframes_margin=1, rel_pos
                  textured_frames=10, textured_ate_m=0.15, textured_landmarks=30)
 
 
+_SHAPE_LOGS = []  # the logs kernel_shapes records into, outermost first
+
+
 @contextlib.contextmanager
 def kernel_shapes(log: dict):
     """Record every launch of both hand kernels for the length of a run:
     `log` maps (kernel, "AxBxC") to [launches, the last launch's (args,
     kwargs)]. Harris is keyed by its (C, H, W) input, Hamming by its output
-    (G, NA, NB) or (NA, NB). The wrappers are the modules' attributes, which
-    every caller looks up at call time, and so is the name whose `launches`
-    a wrapper function counts on: the wrapper carries the counter while it
-    is in place, and hands it back after."""
+    (G, NA, NB) or (NA, NB). The one launch recorder of the script: a use
+    inside another records into both logs (a run's launches and a part of
+    it, such as the pose-graph layer's). The wrappers are the modules'
+    attributes, which every caller looks up at call time, and so is the
+    name whose `launches` a wrapper function counts on: the wrapper carries
+    the counter while it is in place, and hands it back after."""
     from okvis_tpu_torch.ops import detection_cuda, hamming_cuda
 
+    _SHAPE_LOGS.append(log)
+    if len(_SHAPE_LOGS) > 1:  # the outermost use's wrappers are in place
+        try:
+            yield log
+        finally:
+            _SHAPE_LOGS.pop()
+        return
     originals = (detection_cuda.harris_suppressed_cuda, hamming_cuda.hamming_matrix_cuda)
 
     def wrap(name, fn, shape_of):
@@ -2795,9 +2792,11 @@ def kernel_shapes(log: dict):
             n0 = call.launches
             res = fn(*args, **kw)  # counts on call.launches, the module's name
             if call.launches > n0:
-                entry = log.setdefault((name, "x".join(map(str, shape_of(args, res)))), [0, None])
-                entry[0] += call.launches - n0
-                entry[1] = (args, kw)
+                key = (name, "x".join(map(str, shape_of(args, res))))
+                for open_log in _SHAPE_LOGS:
+                    entry = open_log.setdefault(key, [0, None])
+                    entry[0] += call.launches - n0
+                    entry[1] = (args, kw)
             return res
         call.launches = fn.launches
         return call
@@ -2808,16 +2807,27 @@ def kernel_shapes(log: dict):
     try:
         yield log
     finally:
+        _SHAPE_LOGS.pop()
         detection_cuda.harris_suppressed_cuda, hamming_cuda.hamming_matrix_cuda = originals
         for fn, w in zip(originals, wrappers):
             fn.launches = w.launches
 
 
-def shapes_of(log: dict) -> dict:
-    """kernel_shapes' launches, {kernel: {shape: launches}}."""
+def kernel_counts() -> dict:
+    """Both hand kernels' launches so far, read through the modules'
+    attributes: inside kernel_shapes its wrappers carry the counts."""
+    from okvis_tpu_torch.ops import detection_cuda, hamming_cuda
+
+    return dict(harris_nms=detection_cuda.harris_suppressed_cuda.launches,
+                hamming=hamming_cuda.hamming_matrix_cuda.launches)
+
+
+def shapes_of(log: dict, per: int = 1) -> dict:
+    """kernel_shapes' launches, {kernel: {shape: launches}}, divided by `per`
+    (launches a frame or a keyframe)."""
     out = {}
     for (name, shape), (n, _) in sorted(log.items()):
-        out.setdefault(name, {})[shape] = n
+        out.setdefault(name, {})[shape] = n / per if per != 1 else n
     return out
 
 
@@ -2975,6 +2985,7 @@ def app_kernel_entries(log: dict) -> list:
             bound_ms, bound_by = bound(16 * px, {c: k * px for c, k in HARRIS_OPS_PER_PIXEL.items()})
             kernel, plain = (lambda: harris_suppressed_cuda(*args, **kw)), \
                 (lambda: detection.harris_suppressed_plain(*args, **kw))
+            library = None
         else:
             dk = hamming_matrix_cuda(*args, **kw)
             dp = masked_distance_matrix_plain(*args, **kw)
@@ -2985,10 +2996,30 @@ def app_kernel_entries(log: dict) -> list:
             bound_ms, bound_by = bound(n_bytes, *({c: k * outputs for c, k in r.items()} for r in HAMMING_ROUTES))
             kernel, plain = (lambda: hamming_matrix_cuda(*args, **kw)), \
                 (lambda: masked_distance_matrix_plain(*args, **kw))
+            library = pm1_product(args[0], args[1], dk.shape)
         out.append(dict(kernel=name, shape=shape, launches=n, equal=equal, max_abs_err=err,
                         ms=device_ms(kernel, reps=5), plain_ms=device_ms(plain, reps=3, inner=1),
-                        bound_ms=bound_ms, bound_by=bound_by))
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None if library is None else device_ms(library, reps=5),
+                        library=None if library is None else ("±1 float32 torch.matmul" if len(dk.shape) == 2
+                                                              else "±1 float32 torch.bmm")))
     return out
+
+
+def pm1_product(desc_a, desc_b, shape):
+    """The library yardstick of a Hamming launch: the ±1 float32 product of
+    the unpacked descriptors (torch.matmul for (NA, NB), torch.bmm for
+    (G, NA, NB), a batch of 1 broadcast), as a call."""
+    import torch
+
+    from okvis_tpu_torch.ops.hamming import unpack_to_pm1
+
+    va, vb = (unpack_to_pm1(x.reshape(-1, 16)).reshape(*x.shape[:-1], 512) for x in (desc_a, desc_b))
+    if len(shape) == 2:
+        return lambda: torch.matmul(va, vb.T)
+    g = shape[0]
+    va, vb = (x.reshape(-1, *x.shape[-2:]).expand(g, -1, -1) for x in (va, vb))
+    return lambda: torch.bmm(va, vb.transpose(1, 2))
 
 
 def check_app_revisit(dev: str, tmp: str) -> tuple:
@@ -3235,6 +3266,336 @@ def check_app(dev: str = "cuda") -> dict:
                 entries=dict(app_by_shape=entries, app_textured_by_shape=textured_entries))
 
 
+# ---------------------------------------------------------------------------
+# the distributed phase: the batched and sharded BA (okvis_tpu_torch.parallel,
+# solver.optimize_windows_batched) and ThreadedVio with a sharded window
+# ---------------------------------------------------------------------------
+
+# sharded: BACKEND_WINDOW perturbed as the back-end phase perturbs it, in
+# float64, solved by make_sharded_optimizer on one-card meshes of each of
+# `shards` shards (all on cuda:0) and on make_mesh2d(*mesh2d), each held to
+# the card's float64 optimize_window at SHARDED_TOL; in float32 at
+# f32_shards shards, held to that float64 reading and to ground truth by
+# OPTIMIZE_GATES["optimize"]. The window's landmark slots are laid out round
+# robin over the shard blocks, as Estimator.enable_distributed hands slots
+# out (build_ba_problem fills them in order, and at 8 shards in order
+# shard_problem sheds 8 of the 1,250 observations over shard 6's block; the
+# line prints that count too). two_process: tests/torch_multiproc_worker.py's
+# world (L = 64, O = 256) on make_mesh2d(2, 2) across two processes joined by
+# torch.distributed over gloo with every shard on cuda:0, held to the
+# single-device solve to 1e-8. batched: optimize_windows_batched over the
+# first B of max(batch) copies of BACKEND_WINDOW perturbed with numpy seeds
+# 7, 8, ..., each window held to its own optimize_window to BATCHED_TOL in
+# float64, and in float32 to that float64 reading by OPTIMIZE_GATES.
+# runtime: the runtime phase's first `frames` frames through ThreadedVio
+# (run_runtime mode "distributed": the window sharded over runtime_shards
+# shards on cuda:0, float32, blocking), its first `rerun_frames` frames run
+# again for bitwise equality.
+DISTRIBUTED = dict(shards=(1, 2, 4, 8), mesh2d=(2, 4), f32_shards=4, batch=(1, 4, 16), runtime_shards=4,
+                   frames=12, rerun_frames=6, worker_timeout_s=300)
+SHARDED_TOL = dict(pose=1e-8, cost_rtol=1e-8, hp_W=1e-7)  # tests/test_parallel.py:62-74
+BATCHED_TOL = 1e-9  # tests/test_solver.py:238
+# The JAX package's ThreadedVio with distributed_devices 4 on a 4-device
+# virtual CPU mesh, on the same frames (scripts/jax_distributed.py float32;
+# a CPU run, not a device metric)
+JAX_DISTRIBUTED = dict(float32=dict(ate_m=0.023508041532269527, frames_tracked=12, landmarks=109, keyframes=6,
+                                    initialized_at_frame=2))
+# Gates of the runtime part: frames tracked (n - 3, the JAX end-to-end
+# tests' floor), the ATE within ate_margin_m of the JAX reading, keyframes
+# within one of it, landmarks within VIO_GATES' share of its count, no
+# observation shed. The landmark count moves with each package's RANSAC
+# draws (the port's come from its own generator) and with float32: 109
+# landmarks in the JAX run, 114 in the port's float32 CPU run, 112 on the
+# card; with the JAX draws replayed into the port, both sharded runtimes
+# take the same decisions in float64 (tests/test_torch_parallel.py::
+# test_full_vision_tracking_distributed_matches_jax: 197 and 197).
+DISTRIBUTED_GATES = dict(ate_margin_m=0.003, landmarks_rel=VIO_GATES["landmarks_rel"], keyframes_margin=1)
+
+
+def round_robin_slots(problem, n: int):
+    """The window with its landmark slots laid out round robin over n shard
+    blocks (old slot k to new slot rr[k]), as Estimator.enable_distributed
+    hands slots out: the same problem under another slot numbering.
+    Returns (problem, rr)."""
+    import torch
+
+    L = problem.lm_mask.shape[0]
+    Ls = L // n
+    rr = torch.tensor([b * Ls + i for i in range(Ls) for b in range(n)], device=problem.lm_mask.device)
+    st = problem.states
+    hp, lm = torch.empty_like(st.hp_W), torch.empty_like(problem.lm_mask)
+    hp[rr], lm[rr] = st.hp_W, problem.lm_mask
+    obs = problem.obs._replace(lm_idx=rr[problem.obs.lm_idx.long()].to(problem.obs.lm_idx.dtype))
+    return problem._replace(states=st._replace(hp_W=hp), lm_mask=lm, obs=obs), rr
+
+
+def host_ms(fn) -> tuple:
+    """(result, host ms) of one call that ends in a wait for the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def tree_equal(a, b) -> bool:
+    """Bitwise equality of two trees of tensors."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all((x is None and y is None) or torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def check_sharded(dev: str) -> dict:
+    """The sharded part: each mesh of DISTRIBUTED against the float64
+    single-device solve; per mesh the observations shed, the errors, a
+    bitwise rerun, ms and launches a call (torch.profiler)."""
+    import torch
+
+    from okvis_tpu_torch.parallel import make_mesh, make_mesh2d, make_sharded_optimizer, shard_problem
+    from okvis_tpu_torch.solver import evaluate, optimize_window
+
+    windows = {dt: build_window(dev, dt) for dt in (torch.float64, torch.float32)}
+    cfg, imu, intr, problem, truth = windows[torch.float64]
+    (ref, ref_diag), ref_ms = host_ms(lambda: optimize_window(cfg, imu, intr, problem))
+    ref_cost = float(ref_diag.final_cost)
+    cases = [(f"{n}", make_mesh(devices=[dev] * n), "map", torch.float64) for n in DISTRIBUTED["shards"]]
+    h, m = DISTRIBUTED["mesh2d"]
+    cases.append((f"{h}x{m}", make_mesh2d(h, m, devices=[dev] * (h * m)), ("host", "map"), torch.float64))
+    n32 = DISTRIBUTED["f32_shards"]
+    cases.append((f"{n32} float32", make_mesh(devices=[dev] * n32), "map", torch.float32))
+    rows, fails = [], []
+    for name, mesh, axis, dtype in cases:
+        cfg, imu, intr, problem, truth = windows[dtype]
+        n = mesh.size
+        live = int(problem.obs.mask.sum())
+        shed_in_order = live - int(shard_problem(problem, n).obs.mask.sum())
+        laid, rr = round_robin_slots(problem, n)
+        sharded = shard_problem(laid, n)
+        opt = make_sharded_optimizer(cfg, imu, intr, mesh, axis)
+        states, (cost, hist, acc, lam) = opt(sharded)
+        again, ms = host_ms(lambda: opt(sharded))
+        prof = profile_call(lambda: opt(sharded))
+        hp = states.hp_W[rr]  # back to the window's slots
+        row = dict(mesh=name, shards=n, axis=list(axis) if isinstance(axis, tuple) else axis,
+                   dtype=str(dtype).split(".")[-1], observations=live, shed=live - int(sharded.obs.mask.sum()),
+                   shed_with_slots_in_order=shed_in_order, ms_per_call=ms, launches_per_call=prof["launches"],
+                   kernel_ms_per_call=prof["kernel_ms"], accepted=acc.cpu().tolist(),
+                   bitwise_equal_rerun=tree_equal((states, cost, hist, acc, lam), again))
+        if dtype == torch.float64:
+            row.update(max_pose_err=max(float((states.r_WS - ref.r_WS).abs().max()),
+                                        float((states.q_WS - ref.q_WS).abs().max())),
+                       cost_rel_err=abs(float(cost) - ref_cost) / abs(ref_cost),
+                       max_hp_W_err=float((hp - ref.hp_W).abs().max()))
+            if not (row["max_pose_err"] <= SHARDED_TOL["pose"] and row["cost_rel_err"] <= SHARDED_TOL["cost_rtol"]
+                    and row["max_hp_W_err"] <= SHARDED_TOL["hp_W"]):
+                fails.append(f"mesh {name} differs from the single-device solve beyond {SHARDED_TOL}: {row}")
+        else:
+            S = cfg.num_states
+            g = OPTIMIZE_GATES["optimize"]
+            r_err, ang_err = pose_errors(states, truth["r_WS"], truth["q_WS"])
+            sb_err = float((states.speed_and_bias[:S].cpu().double() - torch.as_tensor(truth["sb"])).abs().max())
+            cost0 = float(evaluate(cfg, imu, intr, problem, problem.states).cost)
+            row.update(position=r_err, orientation=ang_err, speed_bias=sb_err,
+                       final_over_initial_cost=float(cost) / cost0)
+            row["f64_position"], row["f64_orientation"] = pose_errors(states, ref.r_WS[:S].cpu().numpy(),
+                                                                      ref.q_WS[:S].cpu().numpy())
+            errs = (r_err, ang_err, sb_err, row["final_over_initial_cost"])
+            if not (bool(torch.isfinite(states.r_WS).all()) and all(e < t for e, t in zip(errs, g["gates"]))
+                    and row["f64_position"] <= g["f64"][0] and row["f64_orientation"] <= g["f64"][1]):
+                fails.append(f"mesh {name} misses OPTIMIZE_GATES['optimize'] {g}: {row}")
+        if row["shed"]:
+            fails.append(f"mesh {name}: shard_problem shed {row['shed']} observations")
+        if not row["bitwise_equal_rerun"]:
+            fails.append(f"mesh {name}: the rerun differs")
+        rows.append(row)
+    return dict(single_device_ms=ref_ms, cases=rows, fails=fails)
+
+
+def check_two_process(dev: str) -> dict:
+    """The two-process part: tests/torch_multiproc_worker.py twice, ranks 0
+    and 1 of a gloo group on localhost, every shard on `dev`; each killed
+    when DISTRIBUTED["worker_timeout_s"] expires."""
+    import os
+    import socket
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_multiproc_worker.py")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(i), "2", str(port), dev, "2"], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for i in range(2)]
+    outs, fails = [], []
+    try:
+        for i, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=DISTRIBUTED["worker_timeout_s"])
+            except subprocess.TimeoutExpired:
+                fails.append(f"worker {i} timed out")
+                break
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            fails.append(f"worker {i} failed (rc={rc}): {err[-2000:]}")
+    ok = [line for rc, out, _ in outs[:1] for line in out.splitlines() if line.startswith("MULTIPROC_OK")]
+    if not fails and not ok:
+        fails.append(f"worker 0 printed no MULTIPROC_OK: {outs[0][1][-2000:] if outs else ''}")
+    reading = dict(kv.split("=") for kv in ok[0].split()[1:]) if ok else {}
+    return dict(mesh=[2, 2], backend="gloo", device=dev, world="tests/torch_multiproc_worker.py (L = 64, O = 256)",
+                **{k: float(v) for k, v in reading.items()}, seconds=time.perf_counter() - t0, fails=fails)
+
+
+def check_batched(dev: str) -> dict:
+    """The batched part: at each B of DISTRIBUTED["batch"], in float64 and
+    float32, optimize_windows_batched against each window's own solve; ms a
+    window (one timed call, float32 also a second) and launches a call
+    (torch.profiler, float32)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from okvis_tpu_torch.datasets.synthetic import build_ba_problem
+    from okvis_tpu_torch.solver import optimize_window, optimize_windows_batched
+
+    n = max(DISTRIBUTED["batch"])
+    probs = {}
+    for dtype in (torch.float64, torch.float32):
+        cfg, imu, intr, problem, truth = build_ba_problem(**BACKEND_WINDOW, device=dev, dtype=dtype)
+        probs[dtype] = (cfg, imu, intr, [perturb_problem(problem, truth, np.random.default_rng(7 + i))
+                                         for i in range(n)], truth)
+    cfg, imu, intr, p64, truth = probs[torch.float64]
+    singles = [optimize_window(cfg, imu, intr, p) for p in p64]
+    single_ms = host_ms(lambda: optimize_window(cfg, imu, intr, p64[0]))[1]
+    rows, fails = [], []
+    S = cfg.num_states
+    for dtype in (torch.float64, torch.float32):
+        cfg, imu, intr, ps, truth = probs[dtype]
+        for B in DISTRIBUTED["batch"]:
+            batched = pytree.tree_map(lambda *xs: None if xs[0] is None else torch.stack(xs), *ps[:B])
+            (states, diag), ms = host_ms(lambda: optimize_windows_batched(cfg, imu, intr, batched))
+            row = dict(B=B, dtype=str(dtype).split(".")[-1], ms_per_call=ms, ms_per_window=ms / B)
+            if dtype == torch.float32:
+                ms2 = host_ms(lambda: optimize_windows_batched(cfg, imu, intr, batched))[1]
+                row.update(ms_per_window_second_call=ms2 / B,
+                           launches_per_call=profile_call(
+                               lambda: optimize_windows_batched(cfg, imu, intr, batched))["launches"])
+                errs = [pose_errors(type(states)(*(None if x is None else x[i] for x in states)),
+                                    s.r_WS[:S].cpu().numpy(), s.q_WS[:S].cpu().numpy()) for i, (s, _) in
+                        enumerate(singles[:B])]
+                row["max_f64_position"] = max(e[0] for e in errs)
+                row["max_f64_orientation"] = max(e[1] for e in errs)
+                g = OPTIMIZE_GATES["optimize"]["f64"]
+                if not (row["max_f64_position"] <= g[0] and row["max_f64_orientation"] <= g[1]):
+                    fails.append(f"B = {B} float32 differs from the float64 solves beyond {g}: {row}")
+            else:
+                row["max_pose_err"] = max(float((states.r_WS[i] - s.r_WS).abs().max()) for i, (s, _) in
+                                          enumerate(singles[:B]))
+                row["max_cost_rel_err"] = max(abs(float(diag.final_cost[i]) - float(d.final_cost))
+                                              / abs(float(d.final_cost)) for i, (_, d) in enumerate(singles[:B]))
+                if not (row["max_pose_err"] <= BATCHED_TOL and row["max_cost_rel_err"] <= BATCHED_TOL):
+                    fails.append(f"B = {B} float64 differs from optimize_window beyond {BATCHED_TOL}: {row}")
+            if not bool(torch.isfinite(states.r_WS).all()):
+                fails.append(f"B = {B} {row['dtype']}: non-finite states")
+            rows.append(row)
+    return dict(window="BACKEND_WINDOW", single_window_ms_float64=single_ms, cases=rows, fails=fails)
+
+
+def check_distributed_runtime(dev: str) -> tuple:
+    """The runtime part: the runtime phase's first DISTRIBUTED["frames"]
+    frames through ThreadedVio with a sharded window, its launches by shape
+    recorded, and again over its first DISTRIBUTED["rerun_frames"] frames.
+    Returns its line and the kernel shapes' log of the first run."""
+    from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    scene = vio_scene()
+    shed = []
+    log = logging.getLogger("okvis_tpu_torch")
+    handler = logging.Handler()
+    handler.emit = lambda record: shed.append(record.getMessage()) if "shedding" in record.getMessage() else None
+    log.addHandler(handler)
+    try:
+        harris_suppressed_cuda.launches = 0
+        hamming_matrix_cuda.launches = 0
+        run1 = run_runtime(scene, dev, "distributed", n_frames=DISTRIBUTED["frames"],
+                           snapshot_after=DISTRIBUTED["rerun_frames"])
+        launches = dict(harris_nms=harris_suppressed_cuda.launches, hamming=hamming_matrix_cuda.launches)
+        run2 = run_runtime(scene, dev, "distributed", n_frames=DISTRIBUTED["rerun_frames"],
+                           snapshot_after=DISTRIBUTED["rerun_frames"])
+    finally:
+        log.removeHandler(handler)
+    result = runtime_result(run1, scene.traj)
+    est = run1.vio.estimator
+    timed = run1.rows[2:]
+    frame_ms = [r["frame_ms"] for r in timed]
+    n = len(run1.rows)
+    line = dict(part="runtime", frames=n, rerun_frames=len(run2.rows), keypoints=VIO_KEYPOINTS, dtype="float32",
+                mesh=dict(shards=est._mesh.size, devices=[str(d) for d in est._mesh.devices]),
+                window=dict(S=est.cfg.num_states, L=est.cfg.max_landmarks, O=est.cfg.max_observations),
+                frame_ms=dict(median=statistics.median(frame_ms), max=max(frame_ms), timed_frames=len(frame_ms)),
+                stages=run1.stages, launches=launches, launches_by_shape=shapes_of(run1.shapes),
+                launches_per_frame_by_shape=shapes_of(run1.shapes, n),
+                shed_warnings=shed, frames_fed=run1.frames_fed, frames_processed=run1.frames_processed,
+                bitwise_equal_rerun=mode_rerun_equal(run1, run2), position_error_m=[r["position"] for r in run1.rows],
+                jax_cpu_reference=JAX_DISTRIBUTED["float32"], gates=DISTRIBUTED_GATES)
+    line.update({k: v for k, v in result.items() if k != "arrays"})
+    ref, gates = JAX_DISTRIBUTED["float32"], DISTRIBUTED_GATES
+    fails = []
+    for run in (run1, run2):
+        if run.frames_processed != run.frames_fed:
+            fails.append(f"{run.frames_processed} of {run.frames_fed} frames processed")
+    if result["frames_tracked"] < n - 3:
+        fails.append(f"{result['frames_tracked']} of {n} frames tracked")
+    if result["ate_m"] is None or result["ate_m"] > ref["ate_m"] + gates["ate_margin_m"]:
+        fails.append(f"ATE {result['ate_m']} against the JAX float32 CPU run's {ref['ate_m']}")
+    if abs(result["landmarks"] - ref["landmarks"]) > gates["landmarks_rel"] * ref["landmarks"]:
+        fails.append(f"{result['landmarks']} landmarks (JAX float32 CPU run: {ref['landmarks']})")
+    if abs(result["keyframes"] - ref["keyframes"]) > gates["keyframes_margin"]:
+        fails.append(f"{result['keyframes']} keyframes (JAX float32 CPU run: {ref['keyframes']})")
+    if shed:
+        fails.append(f"observations shed: {shed}")
+    if not all(line["bitwise_equal_rerun"].values()):
+        fails.append(f"the rerun differs: {line['bitwise_equal_rerun']}")
+    fails += [f"kernels of the path: {f}" for f in shape_count_fails(launches, run1.shapes)]
+    line["fails"] = fails
+    return line, run1.shapes
+
+
+def check_distributed(dev: str = "cuda") -> dict:
+    """The distributed phase: the sharded, two-process, batched and runtime
+    parts, a `distributed` line each; each kernel held to its plain version
+    at every shape the runtime part launched it at
+    (`distributed_kernels`). Returns the runtime part's launches and kernel
+    entries for the `kernels` line."""
+    lines, fails = {}, []
+    log = None
+    for part, check in (("sharded", check_sharded), ("two_process", check_two_process),
+                        ("batched", check_batched), ("runtime", check_distributed_runtime)):
+        t0 = time.perf_counter()
+        line = check(dev)
+        if part == "runtime":
+            line, log = line
+        line["seconds"] = time.perf_counter() - t0
+        print("distributed", json.dumps(dict(part=part, **{k: v for k, v in line.items() if k != "part"})))
+        fails += [f"{part}: {f}" for f in line["fails"]]
+        lines[part] = line
+    entries = app_kernel_entries(log) if dev == "cuda" else []
+    print("distributed_kernels", json.dumps(entries))
+    fails += [f"{e['kernel']} at {e['shape']} differs from its plain version" for e in entries if not e["equal"]]
+    if fails:
+        raise SmokeError("distributed phase: " + "; ".join(fails))
+    return dict(launches=lines["runtime"]["launches"], entries=entries)
+
+
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
     compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
@@ -3335,6 +3696,9 @@ def main() -> int:
     t0 = time.perf_counter()
     app = check_app()
     print(f"app_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    distributed = check_distributed()
+    print(f"distributed_seconds {time.perf_counter() - t0:.2f}")
     # `launches` is the runtime's (the main path, through ThreadedVio); the
     # other paths' counts stay beside it
     for k, name in zip(kernels, ("harris_nms", "hamming")):
@@ -3342,12 +3706,14 @@ def main() -> int:
                                      runtime=runtime["launches"][name],
                                      **{m: modes["launches"][m][name] for m in MODES},
                                      **{p: n[name] for p, n in posegraph["launches"].items()},
-                                     **{p: n[name] for p, n in app["launches"].items()})
+                                     **{p: n[name] for p, n in app["launches"].items()},
+                                     distributed=distributed["launches"][name])
         k["launches"] = runtime["launches"][name]
-        # each app part's launches at each shape, each held to the plain version
-        for part, entries in app["entries"].items():
+        # each app part's and the sharded runtime's launches at each shape,
+        # each held to the plain version
+        for part, entries in dict(app["entries"], distributed_by_shape=distributed["entries"]).items():
             k[part] = [{key: e[key] for key in ("shape", "launches", "equal", "max_abs_err", "ms", "plain_ms",
-                                                "bound_ms", "bound_by")}
+                                                "bound_ms", "bound_by", "library_ms")}
                        for e in entries if e["kernel"] == name]
     kernels[0]["octave_shapes"] = modes["kernels"]["harris_octaves"]
     kernels[1]["association"] = vio["association"]

@@ -180,7 +180,7 @@ def main(argv=None):
                     help="render the top-down trajectory view to a PNG "
                          "(headless PoseViewer analog)")
     ap.add_argument("--distributed", type=int, default=0, metavar="N",
-                    help="shard the sliding-window BA over N devices (not ported yet: raises)")
+                    help="shard the sliding-window BA over N devices (CPU shards with --device cpu)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace to DIR/trace.json")
     ap.add_argument("--checkpoint-out", default=None, metavar="CKPT",

@@ -2,9 +2,7 @@
 reference's okvis::VioParameters, okvis_common Parameters.hpp:60-297).
 
 The defaults are the EuRoC reference configuration's values. The port's
-ThreadedVio refuses the fields of modes it does not hold yet (per-state
-extrinsics, distributed_devices > 0, an enabled pose graph,
-detection_octaves > 0)."""
+ThreadedVio holds every mode these fields select."""
 
 from __future__ import annotations
 
@@ -77,8 +75,8 @@ class OptimizationConfig:
     detection_threshold: float = 40.0
     detection_octaves: int = 0
     max_num_keypoints: int = 400
-    # >0: run the sliding-window BA sharded over this many devices (the JAX
-    # package's parallel.sharded_ba; not ported)
+    # >0: run the sliding-window BA sharded over this many devices
+    # (okvis_tpu_torch.parallel)
     distributed_devices: int = 0
 
 

@@ -31,9 +31,11 @@ variance sigma_c^2 dt, the first state's blocks anchored by a prior through
 the marginal-prior mechanism; blocks of removed frames are marginalized with
 their pose and their drift links absorbed into the prior.
 
-Not ported: the distributed solve (enable_distributed). save_checkpoint / load_checkpoint
-write and read the port's own file: the host state of
-convert.estimator_to_numpy plus the window's multiframe keypoint tables.
+enable_distributed runs every optimize as the sharded BA of
+okvis_tpu_torch.parallel over a mesh of devices (n shards may share one
+card). save_checkpoint / load_checkpoint write and read the port's own
+file: the host state of convert.estimator_to_numpy plus the window's
+multiframe keypoint tables.
 
 Host syncs: add_states' propagation fetch (unless deferred), one fetch at
 the end of optimize (one device-to-host copy of every pulled table), one
@@ -67,6 +69,7 @@ from ..solver import (
     Observations,
     PosePriors,
     SbPriors,
+    SolveDiagnostics,
     WindowConfig,
     WindowStates,
     empty_problem,
@@ -313,6 +316,8 @@ class Estimator:
 
         # the device programs, keyed as the JAX package's _jit_cache
         self._jit_cache: Dict[object, object] = {}
+        self._mesh = None  # set by enable_distributed()
+        self._n_shards = 1
         # deferred add_states propagation: (slot, T_WS device, sb device) not
         # yet committed to the numpy tables; fetched together with the next
         # association fetch (fetch_with_pending), so add_states itself never
@@ -373,12 +378,12 @@ class Estimator:
         here the time-limit knob selects a shorter-iteration variant or runs
         the chunked contract of _optimize_deadline. `LO` (max_landmarks,
         max_observations) selects a reduced capacity tier."""
-        key = ("opt", max_iterations, False, LO)
+        key = ("opt", max_iterations, self._mesh is not None, LO)
         if key not in self._jit_cache:
-            cfg = self.cfg if max_iterations is None else dataclasses.replace(
-                self.cfg, max_iterations=max_iterations)
-            self._jit_cache[key] = functools.partial(
-                optimize_window, self._tier_cfg(cfg, LO), self.imu_params, self.intrinsics)
+            cfg = self._tier_cfg(self.cfg if max_iterations is None else dataclasses.replace(
+                self.cfg, max_iterations=max_iterations), LO)
+            self._jit_cache[key] = (self._make_sharded_fn(cfg) if self._mesh is not None else
+                                    functools.partial(optimize_window, cfg, self.imu_params, self.intrinsics))
         return self._jit_cache[key]
 
     def _optimize_fn_for_problem(self, problem, max_iterations: Optional[int] = None):
@@ -406,7 +411,7 @@ class Estimator:
         Tiering is identical math (every factor and mask is kept, only the
         padding shrinks), so selection is purely a speed decision."""
         cfg = self.cfg
-        if not cfg.capacity_tiers:
+        if not cfg.capacity_tiers or self._mesh is not None:
             return None
         if os.environ.get("OKVIS_CAPACITY_TIERS", "") in ("0", "marg"):
             return None  # debug kill-switch ("marg" = marg-tier only)
@@ -470,6 +475,63 @@ class Estimator:
             diag = diag._replace(cost_history=torch.cat(hists), accepted=torch.cat(accs))
         return states, diag
 
+    def enable_distributed(self, mesh=None, n_devices: Optional[int] = None) -> None:
+        """Run every optimize() as the sharded BA over a device mesh: the
+        landmark and observation tables split over the mesh's shards, the
+        dense system summed over them (okvis_tpu_torch.parallel). `mesh` is
+        a parallel.Mesh (several shards may share one card); without one,
+        n_devices distinct cards (parallel.make_mesh), or n_devices CPU
+        shards when the estimator runs on the CPU. The mesh runs in this
+        process. Requires max_landmarks and max_observations divisible by
+        the mesh size. The sharded step carries no capacity tiers and no
+        wall-clock budget, as in the JAX package."""
+        from ..parallel import make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(devices=[self.device] * (n_devices or 1)) if self.device.type == "cpu" \
+                else make_mesh(n_devices)
+        if mesh.process_axis is not None:
+            raise ValueError("Estimator.enable_distributed: the mesh must lie in this process")
+        self._mesh = mesh
+        self._n_shards = mesh.size
+        if self.cfg.max_landmarks % self._n_shards or self.cfg.max_observations % self._n_shards:
+            raise ValueError(
+                f"landmark/observation capacities {self.cfg.max_landmarks}/{self.cfg.max_observations} "
+                f"not divisible by mesh size {self._n_shards}")
+        # drop single-device variants; they are rebuilt sharded
+        for k in list(self._jit_cache):
+            if isinstance(k, tuple) and k[0] == "opt":
+                del self._jit_cache[k]
+        # landmark slots must spread across the shard blocks (shard_problem
+        # gives slot l to shard l // (L/n), and each shard's observation
+        # block holds only its landmarks' observations): hand out free slots
+        # round-robin over the blocks instead of in order
+        self._rebalance_free_lm_slots()
+
+    def _rebalance_free_lm_slots(self) -> None:
+        """Order the free landmark slots so that consecutive pops cycle
+        through the shard blocks (keeps each shard's observation load
+        balanced)."""
+        n, Ls = self._n_shards, self.cfg.max_landmarks // self._n_shards
+        free = set(self._free_lm_slots)
+        rr = [b * Ls + i for i in range(Ls) for b in range(n)]
+        self._free_lm_slots = [s for s in rr if s in free][::-1]
+
+    def _make_sharded_fn(self, cfg: WindowConfig):
+        from ..parallel import make_sharded_optimizer, shard_problem
+
+        axis = tuple(self._mesh.axis_names)
+        opt = make_sharded_optimizer(cfg, self.imu_params, self.intrinsics, self._mesh,
+                                     axis=axis[0] if len(axis) == 1 else axis)
+
+        def run(problem: BaProblem):
+            states, (cost, hist, acc, lam) = opt(shard_problem(problem, self._n_shards))
+            # no landmark_quality: optimize() runs its separate pass
+            return _tree_map(lambda x: None if x is None else x.to(self.device), states), SolveDiagnostics(
+                cost_history=hist, accepted=acc, final_cost=cost, final_lambda=lam)
+
+        return run
+
     @property
     def _preintegrate_fn(self):
         """preintegrate, batched over the links by itself (no vmap)."""
@@ -502,7 +564,7 @@ class Estimator:
         holding the absorbed observations and every referenced landmark
         slot. The same exact-math compaction as _select_tier."""
         cfg = self.cfg
-        if not cfg.capacity_tiers:
+        if not cfg.capacity_tiers or self._mesh is not None:
             return None
         if os.environ.get("OKVIS_CAPACITY_TIERS", "") in ("0", "opt"):
             return None  # debug kill-switch ("opt" = optimize-tier only)
@@ -998,16 +1060,16 @@ class Estimator:
     # ------------------------------------------------------------------
     def optimize(self, max_iterations: Optional[int] = None, verbose: bool = False,
                  time_limit: Optional[float] = None, min_iterations: Optional[int] = None):
-        """One full window solve. With `time_limit` set, runs the chunked
-        wall-clock budget contract (the reference's CeresIterationCallback
-        semantics): >= min_iterations always, up to max_iterations while
-        under budget."""
+        """One full window solve. With `time_limit` set (and a single-device
+        solve), runs the chunked wall-clock budget contract (the reference's
+        CeresIterationCallback semantics): >= min_iterations always, up to
+        max_iterations while under budget."""
         _tb0 = time.perf_counter()
         tier = self._select_tier()
         LO = None if tier is None else (tier["L"], tier["O"])
         problem = self._build_problem(tier=tier)
         Timing.add("host: build problem", time.perf_counter() - _tb0)
-        if time_limit is not None:
+        if time_limit is not None and self._mesh is None:
             states, diag = self._optimize_deadline(
                 problem, time_limit, min_iterations if min_iterations is not None else 1,
                 max_iterations if max_iterations is not None else self.cfg.max_iterations, LO=LO)
@@ -1346,6 +1408,11 @@ class Estimator:
             self._free_lm_slots.append(lm.slot)
             self._lm_slot_to_id.pop(lm.slot, None)
             self.obs_count.pop(lm_id, None)
+        if self._mesh is not None:
+            # keep the slot hand-out round-robin over the shard blocks as
+            # slots churn (shard_problem sheds a shard's overflow; balance
+            # avoids it)
+            self._rebalance_free_lm_slots()
         kept_obs = []
         for o in self.observations:
             if o.lm_id in ids:

@@ -55,7 +55,9 @@ def imu_error(
     eye15 = torch.eye(15, dtype=sb0.dtype, device=sb0.device)
 
     # Jacobian with respect to state 0; columns [dp0, dalpha0 | dv0, db_g0, db_a0]
-    F0 = eye15.repeat(*batch, 1, 1)
+    # built on new_zeros of an input, so a torch.func.vmap batch carries
+    # into the in-place block writes
+    F0 = C_S0W.new_zeros((*batch, 15, 15)) + eye15
     F0[..., 0:3, 0:3] = C_S0W
     F0[..., 0:3, 3:6] = C_S0W @ so3.cross_matrix(delta_p_est_W)
     F0[..., 0:3, 6:9] = C_S0W * dtm
@@ -71,7 +73,7 @@ def imu_error(
     F0[..., 6:9, 12:15] = -pre.C_integral
 
     # Jacobian with respect to state 1
-    F1 = -eye15.repeat(*batch, 1, 1)
+    F1 = -(C_S0W.new_zeros((*batch, 15, 15)) + eye15)
     F1[..., 0:3, 0:3] = -C_S0W
     F1[..., 3:6, 3:6] = -(so3.quat_left(Dq) @ so3.quat_right(T_WS0.q)
                           @ so3.quat_left(q1_inv))[..., :3, :3]

@@ -25,7 +25,9 @@ def sqrt_information(information: torch.Tensor) -> torch.Tensor:
 
 
 def _minus_eye(n: int, batch, like: torch.Tensor) -> torch.Tensor:
-    return -torch.eye(n, dtype=like.dtype, device=like.device).repeat(*batch, 1, 1)
+    # new_zeros of an input, so a torch.func.vmap batch carries into the
+    # callers' in-place block writes
+    return -(like.new_zeros((*batch, n, n)) + torch.eye(n, dtype=like.dtype, device=like.device))
 
 
 def pose_error(T_meas: SE3, sqrt_info: torch.Tensor, T_est: SE3) -> Tuple[torch.Tensor, torch.Tensor]:

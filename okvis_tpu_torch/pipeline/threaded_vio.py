@@ -30,8 +30,9 @@ cannot pass for a quiet pipeline:
 The pose-graph layer (params.posegraph.enabled) runs in the processing
 thread on keyframes only, in float64 on the pipeline's device; it reads the
 estimator and never writes it, so the states are the same with it on or
-off. Not ported (construction raises NotImplementedError): the distributed
-solve.
+off. With distributed_devices > 0 the estimator solves every window as
+the sharded BA over that many devices (Estimator.enable_distributed):
+distinct cards, or CPU shards when the pipeline runs on the CPU.
 """
 
 from __future__ import annotations
@@ -79,10 +80,6 @@ class StateEstimate:
     is_keyframe: bool = False
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"okvis_tpu_torch.ThreadedVio: {what} is not ported yet (ROADMAP.md item {item})")
-
-
 class ThreadedVio:
     """Pipeline runtime. In blocking mode every add_* call backpressures until
     the measurement is consumed (deterministic dataset processing, the mode
@@ -117,8 +114,6 @@ class ThreadedVio:
             _log.warning(
                 "only one of sigma_c_relative_translation/orientation is nonzero — temporal extrinsics "
                 "calibration needs BOTH (ref Estimator.cpp:199-205); treating extrinsics as temporally constant")
-        if params.optimization.distributed_devices > 0:
-            raise _not_ported("the distributed solve (distributed_devices > 0)", 8)
 
         self.rig = rig or build_rig(params, device=self.device)
         if self.rig.device.type != self.device.type:
@@ -150,6 +145,9 @@ class ThreadedVio:
         )
         if online_calib and not per_state:
             self.estimator.add_extrinsics_prior(sig_t, sig_r)
+        if params.optimization.distributed_devices > 0:
+            # sharded BA over a device mesh (config `distributed: devices: N`)
+            self.estimator.enable_distributed(n_devices=params.optimization.distributed_devices)
         # online calibration: the matching/triangulation gates must admit
         # the image-space error an uncalibrated rig produces (~focal x
         # sigma_absolute_orientation px), the static-prior analog of the

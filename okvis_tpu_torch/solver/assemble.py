@@ -129,8 +129,8 @@ def evaluate_reprojection(cfg: WindowConfig, intrinsics: List[torch.Tensor], obs
         ext0 = S * 15 + obs.cam_idx.to(torch.int64) * 6
     cols = torch.cat([obs.state_idx[:, None] * 15 + col6, ext0[:, None] + col6], dim=1)
     J12 = torch.cat([J_pose, J_ext], dim=-1)  # (O, 2, 12)
-    J_full = torch.zeros((O, 2, D), dtype=dtype, device=device).scatter_(
-        2, cols[:, None, :].expand(O, 2, 12), J12)
+    # out of place: the in-place scatter_ has no torch.func.vmap batching rule
+    J_full = J12.new_zeros((O, 2, D)).scatter(2, cols[:, None, :].expand(O, 2, 12), J12)
     H_dd, b_d = normal_eqs_of_rows(J_full, res)
 
     # landmark blocks and the dense-landmark coupling, grouped by landmark

@@ -10,6 +10,9 @@ a ``torch.where`` on device values, the carry of the JAX package's
 ``lax.scan``: no iteration reads a value back to the host, so the whole
 optimize can run under ``torch.cuda.set_sync_debug_mode("error")`` and is a
 candidate for CUDA-graph capture.
+
+optimize_windows_batched runs B windows' loops in lockstep through
+torch.func.vmap: one launch stream for the batch, no per-window loop.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 from typing import List, NamedTuple, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..imu.preintegration import ImuParams
 from ..kinematics import se3
@@ -140,47 +144,69 @@ def solve_normal_eqs(cfg: WindowConfig, eqs: NormalEqs, state_mask: torch.Tensor
                      lm_mask: torch.Tensor, lam: torch.Tensor, sb_mask: torch.Tensor = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One damped Schur solve: (delta_dense (D,), delta_landmarks (L, 3))."""
-    dtype, device = eqs.H_dd.dtype, eqs.H_dd.device
-    D = cfg.dense_dim
     dim_mask = dense_dim_mask(cfg, state_mask, sb_mask)
-
-    # LM damping: H + lam diag(H) (+ floor) on both blocks
-    H_dd = eqs.H_dd + torch.diag(lam * torch.diagonal(eqs.H_dd) + 1e-12)
-    eye3 = torch.eye(3, dtype=dtype, device=device)
-    H_ll = eqs.H_ll + lam * (eqs.H_ll * eye3) + 1e-12 * eye3
-
-    # inactive landmarks contribute nothing and get a zero update
-    Hl_inv = _inv3x3(H_ll) * lm_mask.to(dtype)[:, None, None]
+    Hl_inv = damped_landmark_inverse(eqs.H_ll, lam, lm_mask)
 
     # Schur complement onto the dense block
     WH = eqs.W @ Hl_inv  # (L, D, 3)
-    H_red = H_dd - torch.einsum("ldb,leb->de", WH, eqs.W)
+    H_red = damp_dense(eqs.H_dd, lam) - torch.einsum("ldb,leb->de", WH, eqs.W)
     b_red = eqs.b_d - torch.einsum("ldb,lb->d", WH, eqs.b_l)
+    delta_d = solve_reduced(cfg, H_red, b_red, dim_mask)
+    return delta_d, back_substitute(Hl_inv, eqs.b_l, eqs.W, delta_d)
 
-    # fixed or inactive dense dims: identity rows/cols, zero right-hand side
+
+def damp_dense(H_dd: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """LM damping of the dense block: H + lam diag(H) (+ floor)."""
+    return H_dd + torch.diag(lam * torch.diagonal(H_dd) + 1e-12)
+
+
+def damped_landmark_inverse(H_ll: torch.Tensor, lam: torch.Tensor, lm_mask: torch.Tensor) -> torch.Tensor:
+    """Inverses of the damped 3x3 landmark blocks (..., L, 3, 3); inactive
+    landmarks get zeros, so they contribute nothing and get a zero update."""
+    eye3 = torch.eye(3, dtype=H_ll.dtype, device=H_ll.device)
+    H_ll = H_ll + lam * (H_ll * eye3) + 1e-12 * eye3
+    return _inv3x3(H_ll) * lm_mask.to(H_ll.dtype)[..., None, None]
+
+
+def solve_reduced(cfg: WindowConfig, H_red: torch.Tensor, b_red: torch.Tensor, dim_mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """The dense step of the Schur-reduced system (D,): fixed or inactive
+    dims become identity rows with a zero right-hand side, and the system
+    is Jacobi-scaled before the dense solve."""
+    dtype, device = H_red.dtype, H_red.device
     mf = dim_mask.to(dtype)
     H_red = H_red * mf[:, None] * mf[None, :] + torch.diag(1.0 - mf)
     b_red = b_red * mf
 
     # Jacobi preconditioning keeps the dense solve well scaled in float32
     s = torch.sqrt(torch.clamp(torch.diagonal(H_red), min=1e-12))
-    Hs = H_red / (s[:, None] * s[None, :]) + 1e-10 * torch.eye(D, dtype=dtype, device=device)
-    delta_d = solve_scaled_spd(Hs, b_red / s, cfg.dense_solver) / s * mf
+    Hs = H_red / (s[:, None] * s[None, :]) + 1e-10 * torch.eye(cfg.dense_dim, dtype=dtype, device=device)
+    return solve_scaled_spd(Hs, b_red / s, cfg.dense_solver) / s * mf
 
-    # back-substitute the landmarks
-    rhs_l = eqs.b_l - torch.einsum("ldk,d->lk", eqs.W, delta_d)
-    delta_l = (Hl_inv @ rhs_l[..., None])[..., 0]
-    return delta_d, delta_l
+
+def back_substitute(Hl_inv: torch.Tensor, b_l: torch.Tensor, W: torch.Tensor, delta_d: torch.Tensor
+                    ) -> torch.Tensor:
+    """The landmark step (..., L, 3) given the dense step."""
+    rhs_l = b_l - torch.einsum("...ldk,d->...lk", W, delta_d)
+    return (Hl_inv @ rhs_l[..., None])[..., 0]
+
+
+def apply_landmark_update(hp_W: torch.Tensor, delta_l: torch.Tensor, lm_mask: torch.Tensor) -> torch.Tensor:
+    """hp_W (..., L, 4) with the active landmarks' first three components
+    moved by delta_l (..., L, 3)."""
+    lm_f = lm_mask.to(delta_l.dtype)[..., None]
+    return torch.cat([hp_W[..., :3] + delta_l * lm_f, hp_W[..., 3:]], dim=-1)
 
 
 def apply_update(cfg: WindowConfig, states: WindowStates, delta_d: torch.Tensor, delta_l: torch.Tensor,
                  state_mask: torch.Tensor, lm_mask: torch.Tensor) -> WindowStates:
+    """The window moved by the dense step delta_d (D,) and the landmark
+    step delta_l (L, 3); delta_l None leaves hp_W as it is."""
     S, C = cfg.num_states, cfg.num_cameras
     d_states = delta_d[: S * 15].reshape(S, 15)
     sm = state_mask.to(delta_d.dtype)[:, None]
     new_pose = se3.oplus(SE3(r=states.r_WS, q=states.q_WS), d_states[:, :6] * sm)
     new_ext = se3.oplus(SE3(r=states.r_SC, q=states.q_SC), delta_d[S * 15: S * 15 + C * 6].reshape(C, 6))
-    lm_f = lm_mask.to(delta_d.dtype)[:, None]
     r_SC_t, q_SC_t = states.r_SC_t, states.q_SC_t
     if cfg.extrinsics_per_state:
         new_ps = se3.oplus(SE3(r=r_SC_t.reshape(S * C, 3), q=q_SC_t.reshape(S * C, 4)),
@@ -192,7 +218,7 @@ def apply_update(cfg: WindowConfig, states: WindowStates, delta_d: torch.Tensor,
         speed_and_bias=states.speed_and_bias + d_states[:, 6:15] * sm,
         r_SC=new_ext.r,
         q_SC=new_ext.q,
-        hp_W=torch.cat([states.hp_W[:, :3] + delta_l * lm_f, states.hp_W[:, 3:]], dim=1),
+        hp_W=states.hp_W if delta_l is None else apply_landmark_update(states.hp_W, delta_l, lm_mask),
         r_SC_t=r_SC_t,
         q_SC_t=q_SC_t,
     )
@@ -306,3 +332,28 @@ def optimize_window(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[t
     return states, SolveDiagnostics(
         cost_history=torch.stack(hist), accepted=torch.stack(acc), final_cost=eqs.cost,
         final_lambda=lam, landmark_quality=_landmark_quality(eqs.H_ll))
+
+
+def optimize_windows_batched(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[torch.Tensor],
+                             problems: BaProblem) -> Tuple[WindowStates, SolveDiagnostics]:
+    """Optimize a batch of independent windows in one launch stream.
+
+    `problems` is a BaProblem with a leading batch axis on every tensor
+    (stack individual problems leaf by leaf, e.g. with
+    ``torch.utils._pytree.tree_map(lambda *xs: torch.stack(xs), *probs)``;
+    None fields stay None). Every window runs the full trust-region loop in
+    lockstep under torch.func.vmap, so the number of launches does not grow
+    with the batch: the throughput mode, where optimize_window is the
+    latency mode. Every op of the loop has a vmap batching rule (no
+    per-example fallback: tests/test_torch_parallel.py holds that)."""
+    in_dims = pytree.tree_map(lambda x: None if x is None else 0, problems)
+    spec = {}
+
+    def one(problem):
+        # vmap returns tensors only: the None fields ride outside
+        leaves, spec["tree"] = pytree.tree_flatten(optimize_window(cfg, imu_params, intrinsics, problem))
+        spec["none"] = [x is None for x in leaves]
+        return tuple(x for x in leaves if x is not None)
+
+    out = iter(torch.func.vmap(one, in_dims=(in_dims,))(problems))
+    return pytree.tree_unflatten([None if n else next(out) for n in spec["none"]], spec["tree"])

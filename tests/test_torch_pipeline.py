@@ -186,30 +186,24 @@ def _per_state(p):
     p.camera_params.sigma_c_relative_orientation = 1e-5
 
 
-@pytest.mark.parametrize("mode,item", [
-    (_per_state, None),
-    (lambda p: setattr(p.optimization, "distributed_devices", 8), 8),
-    (lambda p: setattr(p.posegraph, "enabled", True), None),
-    (lambda p: setattr(p.optimization, "detection_octaves", 2), None),
+@pytest.mark.parametrize("mode,built", [
+    (_per_state, lambda vio: vio.estimator.cfg.extrinsics_per_state),
+    (lambda p: setattr(p.optimization, "distributed_devices", 8),
+     lambda vio: vio.estimator._mesh is not None and vio.estimator._mesh.size == 8),
+    (lambda p: setattr(p.posegraph, "enabled", True), lambda vio: vio.posegraph is not None),
+    (lambda p: setattr(p.optimization, "detection_octaves", 2), lambda vio: vio.frontend.cfg.detection_octaves == 2),
 ], ids=["per_state_extrinsics", "distributed", "posegraph", "detection_octaves"])
-def test_unported_modes_raise_at_construction(mode, item):
-    """The mode ROADMAP item 8 leaves out (the distributed solve) raises at
-    construction and starts no worker; those of item 6 (per-state
-    extrinsics, scale-space detection) and item 7 (the pose graph) are
-    ported and build."""
+def test_unported_modes_raise_at_construction(mode, built):
+    """Every mode builds and holds what it selects: those of item 6
+    (per-state extrinsics, scale-space detection), item 7 (the pose graph)
+    and item 8 (the distributed solve, here an 8-shard CPU mesh; it raised
+    at construction before item 8 was ported)."""
     p = _params()
     mode(p)
-    n = threading.active_count()
-    if item is None:
-        vio = _vio(p)
-        assert (vio.estimator.cfg.extrinsics_per_state or vio.frontend.cfg.detection_octaves == 2
-                or vio.posegraph is not None)
-        vio.shutdown()
-        assert _joined(vio)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        _vio(p)
-    assert threading.active_count() == n  # no worker was started
+    vio = _vio(p)
+    assert built(vio)
+    vio.shutdown()
+    assert _joined(vio)
 
 
 def test_rig_on_another_device_is_refused():
