@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the okvis_tpu_torch vision slice, back end, estimator, the
 per-frame VIO loop, the runtime (ThreadedVio), its estimator modes, the
-pose-graph layer, the EuRoC app and the batched and sharded BA on one CUDA
-card and check them.
+pose-graph layer, the EuRoC app, the batched and sharded BA and the bench
+tools on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -155,14 +155,28 @@ card and check them.
    CPU run on a 4-device mesh (JAX_DISTRIBUTED), with a bitwise rerun of
    its first 6 frames, each kernel held to its plain version at every
    shape it launched at (`distributed_kernels`). Prints a `distributed`
-   line a part.
+   line a part; the sharded part's ms a call come from
+   okvis_tpu_torch.bench.bench_scaling.measure;
+18. runs the bench phase (check_bench, BENCH): the port's measurement
+   tools (okvis_tpu_torch.bench) at sizes that fit: bench.py's run (the
+   pipeline bench's 35 frames through ThreadedVio with its five captured
+   programs replayed, each bitwise equal to the call it captured, the host
+   table of that run, ba_bench), the deadline contract, the capacity tiers,
+   profile_ba, the detect bench, one optimize of the 4x window, the
+   pose-graph bench (its 1,024 x 400 database queried, the Hamming kernel
+   held to its plain version at (400, 409,600)) and one accuracy-proxy
+   cell through the tool's --cell subprocess; held to BENCH_GATES and the
+   JAX package's float32 CPU readings (JAX_BENCH); the pipeline run's
+   kernels held to their plain versions at every shape it launched them
+   at. Prints one `bench` line.
 
 Every launch count by shape comes from one recorder, kernel_shapes.
 
 Prints the `kernels` JSON line (each kernel's `launches` from the runtime's
 first run, the other paths' in `launches_by_path`; each app part's and the
-sharded runtime's launches by shape beside their plain versions and the
-±1 float32 product), and as its last line
+sharded runtime's and the bench pipeline's launches by shape beside their
+plain versions and the ±1 float32 product; the bench database's shape),
+and as its last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero without the
 ok line; so does a run without CUDA or without the okvis_tpu_torch package.
 """
@@ -185,6 +199,9 @@ from dataclasses import replace
 from types import SimpleNamespace
 
 import numpy as np
+
+from okvis_tpu_torch.bench.common import tree_equal
+from okvis_tpu_torch.utils.profiling import profile_call, profile_summary
 
 # ground-truth floors, set from a CPU run of the same frames (PERF.md)
 MIN_KEYPOINTS = 30  # valid keypoints per camera and frame (CPU run: >= 43)
@@ -894,45 +911,6 @@ def check_backend(dev, sync_free):
     return stages, eqs, cfg
 
 
-def device_kernels(prof) -> tuple:
-    """(launches, summed device ms) of the kernels a finished torch.profiler
-    run traced, read from its raw trace events. prof.events() and
-    key_averages() read the same numbers but first build an event object
-    for every trace event, seconds of host time for each 40,000-launch
-    estimator frame (scripts/torch_profiler_cost.py, PERF.md)."""
-    import torch
-
-    kern = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return len(kern), sum(e.duration_ns() for e in kern) / 1e6
-
-
-def profile_summary(prof, frames: int, wall_ms: float) -> dict:
-    """A profiled window's device busy share and launches a frame."""
-    launches, kernel_ms = device_kernels(prof)
-    return dict(frames=frames, wall_ms=wall_ms, kernel_ms=kernel_ms, device_busy_share=kernel_ms / wall_ms,
-                launches_per_frame=launches / frames)
-
-
-def profile_call(fn, top: int = 0) -> dict:
-    """One call under torch.profiler: its device kernels' summed time, their
-    launches, and the `top` kernels by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    launches, kernel_ms = device_kernels(prof)
-    out = dict(kernel_ms=kernel_ms, launches=launches)
-    if top:
-        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        kernels.sort(key=lambda e: -e.self_device_time_total)
-        out["top"] = [dict(kernel=e.key[:80], device_ms=e.self_device_time_total / 1e3, calls=e.count)
-                      for e in kernels[:top]]
-    return out
-
-
 def count_syncs(fn) -> int:
     """Host syncs in one call, counted from the warnings of
     torch.cuda.set_sync_debug_mode("warn")."""
@@ -960,7 +938,7 @@ def time_backend(stages, eqs, cfg) -> dict:
     the 10 Newton-Schulz solves and the 11 evaluates take."""
     import torch
 
-    from okvis_tpu_torch.solver.optimize import _spd_solve_newton
+    from okvis_tpu_torch.bench.profile_ba import newton_schulz_call
 
     out = {}
     for name in ("preintegrate", "propagate", "evaluate", "optimize", "marginalize"):
@@ -977,10 +955,9 @@ def time_backend(stages, eqs, cfg) -> dict:
                    **profile_call(fn, top=8 if name == "optimize" else 0), syncs_per_call=count_syncs(fn))
         row["device_busy_share"] = row["kernel_ms"] / row["host_ms"]
         out[name] = row
-    # the dense solve alone, on the window's own Jacobi-scaled system
-    s = torch.sqrt(torch.clamp(torch.diagonal(eqs.H_dd), min=1e-12))
-    Hs = eqs.H_dd / (s[:, None] * s[None, :]) + 1e-10 * torch.eye(cfg.dense_dim, device=s.device)
-    newton = profile_call(lambda: _spd_solve_newton(Hs, eqs.b_d / s))
+    # the dense solve alone, on the window's Jacobi-scaled system: the
+    # stage bench.profile_ba profiles
+    newton = profile_call(newton_schulz_call(cfg, eqs))
     opt = out["optimize"]
     opt["newton_kernel_ms"], opt["newton_launches"] = newton["kernel_ms"], newton["launches"]
     opt["share_newton"] = cfg.max_iterations * newton["kernel_ms"] / opt["kernel_ms"]
@@ -3312,23 +3289,6 @@ JAX_DISTRIBUTED = dict(float32=dict(ate_m=0.023508041532269527, frames_tracked=1
 DISTRIBUTED_GATES = dict(ate_margin_m=0.003, landmarks_rel=VIO_GATES["landmarks_rel"], keyframes_margin=1)
 
 
-def round_robin_slots(problem, n: int):
-    """The window with its landmark slots laid out round robin over n shard
-    blocks (old slot k to new slot rr[k]), as Estimator.enable_distributed
-    hands slots out: the same problem under another slot numbering.
-    Returns (problem, rr)."""
-    import torch
-
-    L = problem.lm_mask.shape[0]
-    Ls = L // n
-    rr = torch.tensor([b * Ls + i for i in range(Ls) for b in range(n)], device=problem.lm_mask.device)
-    st = problem.states
-    hp, lm = torch.empty_like(st.hp_W), torch.empty_like(problem.lm_mask)
-    hp[rr], lm[rr] = st.hp_W, problem.lm_mask
-    obs = problem.obs._replace(lm_idx=rr[problem.obs.lm_idx.long()].to(problem.obs.lm_idx.dtype))
-    return problem._replace(states=st._replace(hp_W=hp), lm_mask=lm, obs=obs), rr
-
-
 def host_ms(fn) -> tuple:
     """(result, host ms) of one call that ends in a wait for the card."""
     import torch
@@ -3340,21 +3300,14 @@ def host_ms(fn) -> tuple:
     return res, 1e3 * (time.perf_counter() - t0)
 
 
-def tree_equal(a, b) -> bool:
-    """Bitwise equality of two trees of tensors."""
-    import torch
-    from torch.utils import _pytree as pytree
-
-    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
-    return len(la) == len(lb) and all((x is None and y is None) or torch.equal(x, y) for x, y in zip(la, lb))
-
-
 def check_sharded(dev: str) -> dict:
     """The sharded part: each mesh of DISTRIBUTED against the float64
     single-device solve; per mesh the observations shed, the errors, a
     bitwise rerun, ms and launches a call (torch.profiler)."""
     import torch
 
+    from okvis_tpu_torch.bench import bench_scaling
+    from okvis_tpu_torch.bench.bench_scaling import round_robin_slots
     from okvis_tpu_torch.parallel import make_mesh, make_mesh2d, make_sharded_optimizer, shard_problem
     from okvis_tpu_torch.solver import evaluate, optimize_window
 
@@ -3377,7 +3330,8 @@ def check_sharded(dev: str) -> dict:
         sharded = shard_problem(laid, n)
         opt = make_sharded_optimizer(cfg, imu, intr, mesh, axis)
         states, (cost, hist, acc, lam) = opt(sharded)
-        again, ms = host_ms(lambda: opt(sharded))
+        again = opt(sharded)
+        ms = 1e3 * bench_scaling.measure(n, n_iter=1, device=dev, window=windows[dtype], mesh=mesh, axis=axis)
         prof = profile_call(lambda: opt(sharded))
         hp = states.hp_W[rr]  # back to the window's slots
         row = dict(mesh=name, shards=n, axis=list(axis) if isinstance(axis, tuple) else axis,
@@ -3596,6 +3550,176 @@ def check_distributed(dev: str = "cuda") -> dict:
     return dict(launches=lines["runtime"]["launches"], entries=entries)
 
 
+# ---------------------------------------------------------------------------
+# the bench phase: the port's measurement tools (okvis_tpu_torch.bench)
+# ---------------------------------------------------------------------------
+
+# pipeline: bench.py's whole run, the pipeline bench at its 35 frames (200
+# keypoints, threshold 15, seeds 31 and 32, 260 landmarks at 4-8 m, 10
+# warm-up frames) with its five programs replayed (wall_reps calls each,
+# kernel_reps profiled), the host table of the same run and ba_bench
+# (ba_iters steps); deadline_trials trials of the budget contract; the
+# three capacity tiers (tier_reps calls each); profile_ba (profile_reps);
+# the detect bench (detect_reps); the big window optimized once; the
+# pose-graph bench (posegraph_reps solves, posegraph_query_reps queries
+# of the 1,024 x 400 database); one accuracy cell through the tool's --cell
+# subprocess.
+BENCH = dict(pipeline_frames=35, warmup=10, wall_reps=10, kernel_reps=3, ba_iters=20, deadline_trials=20,
+             tier_reps=10, profile_reps=5, detect_reps=20, posegraph_reps=3, posegraph_query_reps=3,
+             posegraph_frames=1024, accuracy=("stereo", "photometric", 40, 0), cell_timeout_s=600,
+             database_chunks=4)
+# The JAX package's ThreadedVio in float32 on the CPU on the same worlds and
+# frames (scripts/jax_bench.py pipeline 35; cell stereo photometric 40 0; a
+# CPU run, not a device metric)
+JAX_BENCH = dict(
+    pipeline=dict(frames_fed=35, frames_tracked=35, ate_m=0.015237766848017033, landmarks=189, keyframes=9),
+    accuracy=dict(frames_fed=40, frames_tracked=40, ate_m=0.005975013382836169, landmarks=106, keyframes=15))
+# Gates: every pipeline frame tracked; the pipeline's and the cell's ATE
+# under the accuracy proxy's bound (the pipeline world has none of its own:
+# the tightest, photometric's 0.20 m) and within ate_margin_m of the JAX
+# reading, frames tracked equal to JAX's; each replay bitwise equal to the
+# call it captured; the five programs captured; every tier's final cost
+# within tier_cost_rtol (float32: 1e-5 relative, ~100 ulps) of the full
+# capacity's; the cost falls in ba_bench and in the big window.
+BENCH_GATES = dict(ate_margin_m=VIO_GATES["ate_margin_m"], tier_cost_rtol=1e-5)
+
+
+def bench_database_entry(log: dict, launches: int) -> dict:
+    """The Hamming kernel at the pose-graph bench's database shape (400,
+    409,600) on the last arguments the query launched it with: against its
+    plain version exactly, the plain version run over
+    BENCH["database_chunks"] column blocks (at full width its XOR
+    temporaries alone are ~10 GB), timed beside it and beside the ±1
+    float32 torch.matmul, with its bound."""
+    import torch
+
+    from okvis_tpu_torch.ops.hamming import masked_distance_matrix_plain
+    from okvis_tpu_torch.ops.hamming_cuda import hamming_matrix_cuda
+
+    [(_, ((a, b, ma, mb), _))] = [v for k, v in log.items() if k[0] == "hamming"]
+    n = BENCH["database_chunks"]
+
+    def plain():
+        return torch.cat([masked_distance_matrix_plain(a, bc, ma, mc) for bc, mc in
+                          zip(b.chunk(n), mb.chunk(n))], dim=1)
+
+    dk, dp = hamming_matrix_cuda(a, b, ma, mb), plain()
+    torch.cuda.synchronize()
+    na, nb = dk.shape
+    n_bytes = (a.numel() + b.numel()) * 4 + mb.numel() + na * nb * 4
+    bound_ms, bound_by = bound(n_bytes, *({c: k * na * nb for c, k in r.items()} for r in HAMMING_ROUTES))
+    return dict(shape=[na, nb], launches=launches, max_abs_err=int((dk - dp).abs().max()),
+                equal=bool(torch.equal(dk, dp)), ms=device_ms(lambda: hamming_matrix_cuda(a, b, ma, mb)),
+                plain_ms=device_ms(plain, reps=3, inner=1), plain=f"in {n} column blocks",
+                library_ms=device_ms(pm1_product(a, b, dk.shape)), library="±1 float32 torch.matmul",
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_bench(dev: str = "cuda") -> dict:
+    """The bench phase: each tool of okvis_tpu_torch.bench at BENCH's sizes,
+    held to BENCH_GATES and JAX_BENCH; the kernels of the pipeline run held
+    to their plain versions at every shape it launched them at, the
+    database query's Hamming launch at (400, 409,600). Prints one `bench`
+    line with every reading; returns the launches and kernel entries for the
+    `kernels` line."""
+    from okvis_tpu_torch.bench import (accuracy_proxy, bench, bench_big_window, bench_deadline, bench_detect,
+                                       bench_posegraph, bench_tiers, profile_ba)
+    from okvis_tpu_torch.bench.bench_host import host_table
+    from okvis_tpu_torch.bench.bench_pipeline import PROGRAMS, run_pipeline_bench
+
+    line, fails, seconds = {}, [], {}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        seconds[part] = time.perf_counter() - t0
+        return res
+
+    # bench.py's run: the pipeline bench, the host table of that run, ba_bench
+    pipe_log, counts0 = {}, kernel_counts()
+    with kernel_shapes(pipe_log):
+        pipe = timed("pipeline", lambda: run_pipeline_bench(
+            BENCH["pipeline_frames"], device=dev, warmup=BENCH["warmup"], wall_reps=BENCH["wall_reps"],
+            kernel_reps=BENCH["kernel_reps"], verbose=False))
+    launches = {k: v - counts0[k] for k, v in kernel_counts().items()}
+    ba = timed("ba_bench", lambda: bench.ba_bench(dev, BENCH["ba_iters"], verbose=False))
+    line["pipeline"] = dict(pipe, launches=launches, launches_by_shape=shapes_of(pipe_log),
+                            jax_cpu_reference=JAX_BENCH["pipeline"])
+    line["host"] = host_table(pipe)
+    line["ba_bench"] = ba
+    line["headline"] = dict(metric="pipeline_frames_per_s", value=pipe["value"], unit="frames/s",
+                            vs_baseline=pipe["value"] / bench.BASELINE_FPS,
+                            device_fps_ceiling=pipe["device_fps_ceiling"],
+                            device_fps_ceiling_rt=pipe["device_fps_ceiling_rt"],
+                            ba_optimize_steps_per_s=ba["steps_per_s"])
+    ref, bound_m = JAX_BENCH["pipeline"], min(accuracy_proxy.BOUNDS_M.values())
+    if pipe["frames"] != pipe["frames_fed"] or pipe["frames"] != ref["frames_tracked"]:
+        fails.append(f"pipeline: {pipe['frames']} of {pipe['frames_fed']} frames tracked (JAX: "
+                     f"{ref['frames_tracked']})")
+    if pipe["ate_m"] is None or not (pipe["ate_m"] < bound_m and abs(pipe["ate_m"] - ref["ate_m"])
+                                     <= BENCH_GATES["ate_margin_m"]):
+        fails.append(f"pipeline: ATE {pipe['ate_m']} (bound {bound_m}, JAX float32 CPU {ref['ate_m']})")
+    if sorted(pipe["programs"]) != sorted(PROGRAMS):
+        fails.append(f"pipeline: captured {pipe['programs_captured']}, not {PROGRAMS}")
+    fails += [f"pipeline: the {tag} replay differs from its captured call" for tag, r in pipe["programs"].items()
+              if r["bitwise_equal"] is not True]
+    fails += [f"pipeline: {f}" for f in shape_count_fails(launches, pipe_log)]
+    if not ba["final_cost"] < ba["initial_cost"]:
+        fails.append(f"ba_bench: the cost did not fall ({ba['initial_cost']} -> {ba['final_cost']})")
+    # the layer benches
+    line["deadline"] = timed("deadline", lambda: bench_deadline.run(BENCH["deadline_trials"], device=dev,
+                                                                    verbose=False))
+    line["tiers"] = tiers = timed("tiers", lambda: bench_tiers.run(BENCH["tier_reps"], dev, verbose=False))
+    if not tiers["max_cost_rel_diff"] <= BENCH_GATES["tier_cost_rtol"]:
+        fails.append(f"tiers: final costs {[t['final_cost'] for t in tiers['tiers']]} differ by "
+                     f"{tiers['max_cost_rel_diff']} relative")
+    line["profile_ba"] = timed("profile_ba", lambda: profile_ba.run(BENCH["profile_reps"], dev, verbose=False))
+    line["detect"] = det = timed("detect", lambda: bench_detect.run(BENCH["detect_reps"], dev, verbose=False))
+    if not det["route_equals_plain"]:
+        fails.append("detect: the Harris kernel differs from its plain version")
+    line["big_window"] = big = timed("big_window", lambda: bench_big_window.run(("big",), 1, dev, verbose=False))
+    if not big["windows"]["big"]["final_cost"] < big["windows"]["big"]["initial_cost"]:
+        fails.append(f"big window: the cost did not fall: {big['windows']['big']}")
+    db_log, h0 = {}, kernel_counts()["hamming"]
+    with kernel_shapes(db_log):
+        pg = timed("posegraph", lambda: bench_posegraph.run(
+            reps=BENCH["posegraph_reps"], frames=BENCH["posegraph_frames"], query_reps=BENCH["posegraph_query_reps"],
+            device=dev, verbose=False))
+    db_launches = kernel_counts()["hamming"] - h0
+    line["posegraph"] = dict(pg, hamming_launches=db_launches, launches_by_shape=shapes_of(db_log))
+    key = f"400x{BENCH['posegraph_frames'] * 400}"
+    if set(db_log) != {("hamming", key)} or db_launches != 1 + BENCH["posegraph_query_reps"]:
+        fails.append(f"posegraph: Hamming launches {db_launches}, by shape {shapes_of(db_log)}")
+    # one accuracy cell, through the tool's --cell subprocess
+    config, scen, n, seed = BENCH["accuracy"]
+    rec, rc, err = timed("accuracy", lambda: accuracy_proxy.run_cell(config, scen, seed, n, dev,
+                                                                     timeout=BENCH["cell_timeout_s"]))
+    aref = JAX_BENCH["accuracy"]
+    line["accuracy"] = dict(cell=dict(config=config, scenario=scen, frames=n, seed=seed), record=rec, rc=rc,
+                            jax_cpu_reference=aref)
+    if rec is None:
+        fails.append(f"accuracy cell failed (rc={rc}): {err}")
+    else:
+        med, bnd, ok = accuracy_proxy._gate(config, scen, [rec])
+        line["accuracy"].update(median_ate_m=med, bound_m=bnd, ok=ok)
+        if not ok or rec["frames"] != aref["frames_tracked"] or abs(rec["ate_m"] - aref["ate_m"]) > \
+                BENCH_GATES["ate_margin_m"]:
+            fails.append(f"accuracy {config}/{scen}: {rec['frames']} of {rec['fed']} frames, ATE {rec['ate_m']} "
+                         f"(bound {bnd}, JAX float32 CPU {aref})")
+    # each kernel against its plain version: the pipeline's shapes, the database
+    entries = app_kernel_entries(pipe_log) if dev == "cuda" else []
+    fails += [f"{e['kernel']} at {e['shape']} differs from its plain version" for e in entries if not e["equal"]]
+    database = bench_database_entry(db_log, db_launches) if dev == "cuda" else None
+    if database is not None and (database["max_abs_err"] or not database["equal"]):
+        fails.append(f"the Hamming kernel differs from its plain version at {database['shape']}")
+    line.update(kernels=entries, database=database, seconds=seconds, gates=BENCH_GATES, fails=fails)
+    print("bench", json.dumps(line))
+    if fails:
+        raise SmokeError("bench phase: " + "; ".join(fails))
+    return dict(launches=dict(bench=launches, bench_posegraph=dict(harris_nms=0, hamming=db_launches)),
+                entries=entries, database=database)
+
+
 def kernel_resources(build_log: str, lib) -> dict:
     """Registers, spills and static shared memory of every kernel ptxas
     compiled, from the build log (-Xptxas -v), keyed by the kernel's name and
@@ -3699,6 +3823,9 @@ def main() -> int:
     t0 = time.perf_counter()
     distributed = check_distributed()
     print(f"distributed_seconds {time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    bench = check_bench()
+    print(f"bench_seconds {time.perf_counter() - t0:.2f}")
     # `launches` is the runtime's (the main path, through ThreadedVio); the
     # other paths' counts stay beside it
     for k, name in zip(kernels, ("harris_nms", "hamming")):
@@ -3707,11 +3834,13 @@ def main() -> int:
                                      **{m: modes["launches"][m][name] for m in MODES},
                                      **{p: n[name] for p, n in posegraph["launches"].items()},
                                      **{p: n[name] for p, n in app["launches"].items()},
-                                     distributed=distributed["launches"][name])
+                                     distributed=distributed["launches"][name],
+                                     **{p: n[name] for p, n in bench["launches"].items()})
         k["launches"] = runtime["launches"][name]
         # each app part's and the sharded runtime's launches at each shape,
         # each held to the plain version
-        for part, entries in dict(app["entries"], distributed_by_shape=distributed["entries"]).items():
+        for part, entries in dict(app["entries"], distributed_by_shape=distributed["entries"],
+                                  bench_by_shape=bench["entries"]).items():
             k[part] = [{key: e[key] for key in ("shape", "launches", "equal", "max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")}
                        for e in entries if e["kernel"] == name]
@@ -3719,6 +3848,7 @@ def main() -> int:
     kernels[1]["association"] = vio["association"]
     kernels[1]["mono_association"] = modes["kernels"]["hamming_mono_association"]
     kernels[1]["database"] = posegraph["database"]
+    kernels[1]["bench_database"] = bench["database"]
     print(f"smoke_seconds {time.perf_counter() - t_start:.2f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -449,6 +449,7 @@ class Estimator:
         states, diag = fn(problem)
         if capture.enabled:
             capture.record("optimize", fn, problem)
+            capture.record_output("optimize", (states, diag))
         diag.final_cost.cpu()  # the deadline needs real elapsed time
         syncstats.bump("optimize_deadline_sync")
         iters = min_iterations
@@ -641,6 +642,7 @@ class Estimator:
             T_WS, sb_j = self._propagate_fn(*prop_args)
             if capture.enabled:
                 capture.record("propagate", self._propagate_fn, *prop_args)
+                capture.record_output("propagate", (T_WS, sb_j))
             sb = None if defer_fetch else sb_j
 
         if not self._free_state_slots:
@@ -1078,6 +1080,7 @@ class Estimator:
             states, diag = fn(problem)
             if capture.enabled:
                 capture.record("optimize", fn, problem)
+                capture.record_output("optimize", (states, diag))
         if tier is not None and os.environ.get("OKVIS_TIER_CROSSCHECK"):
             p_full = self._build_problem()
             s2, d2 = self._optimize_fn(max_iterations)(p_full)
@@ -1325,6 +1328,7 @@ class Estimator:
             out = marg_fn(*marg_args)
             if capture.enabled:
                 capture.record("marginalize", marg_fn, *marg_args)
+                capture.record_output("marginalize", out)
             # keep the prior device-resident: no download here and no
             # re-upload in the next _build_problem
             self.marg_H = out.H

@@ -204,6 +204,18 @@ def gravity_extraction_angle(g_in_camera: torch.Tensor) -> torch.Tensor:
     return torch.atan2(g_in_camera[..., 1], g_in_camera[..., 0])
 
 
+def detect_and_describe(
+    img: torch.Tensor,  # (H, W)
+    threshold: float = 30.0,
+    max_keypoints: int = 400,
+    extraction_angle: torch.Tensor = None,
+):
+    """Detection + description of one image in one call: (Keypoints (K, ...),
+    descriptors (K, 16))."""
+    kps = detect_keypoints(img, threshold=threshold, max_keypoints=max_keypoints)
+    return kps, describe_keypoints(img, kps, extraction_angle)
+
+
 def detect_and_describe_batch(
     images: torch.Tensor,  # (C, H, W)
     extraction_angles: torch.Tensor,  # (C,)

@@ -37,7 +37,7 @@ from ..device import resolve_device
 from ..estimator.estimator import device_get
 from ..imu.preintegration import propagate
 from ..kinematics import np_se3
-from ..utils import syncstats
+from ..utils import capture, syncstats
 from ..utils.ids import IdProvider
 from ..utils.timing import Timing
 from . import kernels
@@ -166,11 +166,20 @@ class Frontend:
             kps_b, sizes_b, desc_b = detect_and_describe_batch_pyramid(
                 stack, angles, masks, threshold=cfg.detection_threshold,
                 max_keypoints=cfg.max_keypoints, octaves=cfg.detection_octaves)
+            if capture.enabled:
+                capture.record("detect", detect_and_describe_batch_pyramid, stack, angles, masks,
+                               threshold=cfg.detection_threshold, max_keypoints=cfg.max_keypoints,
+                               octaves=cfg.detection_octaves)
+                capture.record_output("detect", (kps_b, sizes_b, desc_b))
             if cfg.detection_octaves == 0:
                 sizes_b = None
         else:
             kps_b, desc_b = detect_and_describe_batch(
                 stack, angles, threshold=cfg.detection_threshold, max_keypoints=cfg.max_keypoints)
+            if capture.enabled:
+                capture.record("detect", detect_and_describe_batch, stack, angles,
+                               threshold=cfg.detection_threshold, max_keypoints=cfg.max_keypoints)
+                capture.record_output("detect", (kps_b, desc_b))
         # one joint host copy of every camera's uv/mask mirrors (and sizes):
         # the association path reads them many times
         syncstats.bump("detect_fetch")
@@ -454,7 +463,7 @@ class Frontend:
         stereo_pairs = self._stereo_pairs(C) if (stereo and uniform) else ()
         b = lambda x: t(x, torch.bool)  # noqa: E731
         if uniform:
-            out = kernels.associate_multicam(
+            assoc_args = (
                 self.rig.specs[0],
                 self._draw((C, N_HYP, 3)),
                 torch.stack(estimator.intrinsics[:C]),
@@ -462,8 +471,13 @@ class Frontend:
                 T_WS_b_t, sb_b_t, T_WC_a_stk,
                 desc_b_t, b(np.stack(free_b_np)), uv_b_t, t(std_b), b(sel_prev), t(pts_prev),
                 T_SC_stk, float(cfg.gate_radius_px), float(cfg.ransac_threshold_px2),
-                threshold=cfg.matching_threshold, stereo_pairs=stereo_pairs,
             )
+            out = kernels.associate_multicam(
+                *assoc_args, threshold=cfg.matching_threshold, stereo_pairs=stereo_pairs)
+            if capture.enabled:
+                capture.record("associate", kernels.associate_multicam, *assoc_args,
+                               threshold=cfg.matching_threshold, stereo_pairs=stereo_pairs)
+                capture.record_output("associate", out)
             # one blocking fetch: the round's results, the propagated body
             # state (host copy for the recovery round), and any deferred
             # add_states propagation
