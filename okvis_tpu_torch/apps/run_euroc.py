@@ -16,6 +16,8 @@ Beside the JAX package's driver:
   needs PyYAML, which a machine may lack);
 - --profile DIR writes a torch.profiler trace (DIR/trace.json) where the
   JAX driver writes a jax.profiler trace;
+  it records every thread with the pipeline's tracing on, so the trace
+  carries each frame's spans (stages, waits, blocking fetches);
 - `run(decoder=)` passes a PNG decoder to EurocDataset (the CLI keeps
   "auto": the native loader where it builds and the image has its size,
   else datasets/png.py); the result's `decoder_used` counts the images
@@ -96,11 +98,15 @@ def run(
     prof = None
     if profile_dir:
         # the Timing registry gives stage walls on the host; the profiler
-        # gives each kernel's device time
+        # gives each kernel's device time, and, recording every thread, the
+        # pipeline's spans (ThreadedVio.set_tracing) on the threads that ran
+        # them
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
+        vio.set_tracing(True)
         activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * (dev.type == "cuda")
-        prof = profile(activities=activities)
+        prof = profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True))
         prof.__enter__()
     n_frames = 0
     t_start = time.perf_counter()

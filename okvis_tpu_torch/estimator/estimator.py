@@ -39,12 +39,15 @@ multiframe keypoint tables.
 
 Host syncs: add_states' propagation fetch (unless deferred), one fetch at
 the end of optimize (one device-to-host copy of every pulled table), one
-read of the final cost per chunk of the wall-clock budget, and the three of
-marginalize_system's eigh calls. syncstats counts the estimator's own.
+read of the final cost per chunk of the wall-clock budget, the three of
+marginalize_system's eigh calls, and every copy of a host array to the card
+(each waits for the stream). syncstats counts them all (`marg_eigh`,
+`upload`); in a traced pipeline frame each is a `sync.<tag>` span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -76,10 +79,10 @@ from ..solver import (
     optimize_window,
 )
 from ..solver.assemble import evaluate
-from ..solver.optimize import _landmark_quality, dense_dim_mask
-from ..utils import capture, syncstats
+from ..solver.optimize import _landmark_quality, dense_dim_mask, useful_iterations
+from ..utils import capture, syncstats, timing
 from ..utils.ids import IdProvider
-from ..utils.timing import Timing
+from ..utils.timing import Timer, Timing
 from .marginalization import marginalize_system
 
 # opt-in consistency checks for incrementally maintained host bookkeeping
@@ -329,14 +332,18 @@ class Estimator:
     # ------------------------------------------------------------------
     def _t(self, x) -> torch.Tensor:
         """A float array, or the device-resident prior, as a tensor of the
-        estimator's dtype on its device."""
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=self.dtype)
-        return torch.from_numpy(np.asarray(x, np.float64)).to(device=self.device, dtype=self.dtype)
+        estimator's dtype on its device. A copy from the host waits for the
+        card's stream (syncstats `upload`)."""
+        on_device = isinstance(x, torch.Tensor) and x.device.type == self.device.type
+        with contextlib.nullcontext() if on_device else syncstats.sync("upload"):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=self.device, dtype=self.dtype)
+            return torch.from_numpy(np.asarray(x, np.float64)).to(device=self.device, dtype=self.dtype)
 
     def _i(self, x) -> torch.Tensor:
         """An int or bool array as a tensor on the device (its own dtype)."""
-        return torch.from_numpy(np.asarray(x)).to(self.device)
+        with syncstats.sync("upload"):
+            return torch.from_numpy(np.asarray(x)).to(self.device)
 
     def _materialize_prior(self) -> None:
         """Bring a device-resident marginal prior back as float64 numpy
@@ -450,9 +457,10 @@ class Estimator:
         if capture.enabled:
             capture.record("optimize", fn, problem)
             capture.record_output("optimize", (states, diag))
-        diag.final_cost.cpu()  # the deadline needs real elapsed time
-        syncstats.bump("optimize_deadline_sync")
+        with syncstats.sync("optimize_deadline_sync"):
+            diag.final_cost.cpu()  # the deadline needs real elapsed time
         iters = min_iterations
+        initial_cost = diag.initial_cost
         hists, accs = [diag.cost_history], [diag.accepted]
         chunk_cost = None
         cont = self._optimize_continue_fn(1, LO=LO)
@@ -465,15 +473,15 @@ class Estimator:
                 break
             tc = time.perf_counter()
             states, diag = cont(problem._replace(states=states), diag.final_lambda)
-            diag.final_cost.cpu()
-            syncstats.bump("optimize_deadline_sync")
+            with syncstats.sync("optimize_deadline_sync"):
+                diag.final_cost.cpu()
             dt = time.perf_counter() - tc
             chunk_cost = dt if chunk_cost is None else 0.5 * chunk_cost + 0.5 * dt
             iters += 1
             hists.append(diag.cost_history)
             accs.append(diag.accepted)
         if len(hists) > 1:
-            diag = diag._replace(cost_history=torch.cat(hists), accepted=torch.cat(accs))
+            diag = diag._replace(cost_history=torch.cat(hists), accepted=torch.cat(accs), initial_cost=initial_cost)
         return states, diag
 
     def enable_distributed(self, mesh=None, n_devices: Optional[int] = None) -> None:
@@ -654,9 +662,8 @@ class Estimator:
             # device-resident until the next fused fetch; numpy rows stale
             self._pending_prop = (slot, T_WS, sb_j)
         else:
-            if len(self.states) > 1:
-                syncstats.bump("propagate_fetch")
-            r, q, sbv = device_get((T_WS.r, T_WS.q, sb))
+            with syncstats.sync("propagate_fetch") if len(self.states) > 1 else contextlib.nullcontext():
+                r, q, sbv = device_get((T_WS.r, T_WS.q, sb))
             self.r_WS[slot] = r
             self.q_WS[slot] = q
             self.sb[slot] = sbv
@@ -732,20 +739,22 @@ class Estimator:
         """Commit a deferred add_states propagation to the numpy tables."""
         if self._pending_prop is None:
             return
-        syncstats.bump("resolve_prop")
         slot, T, sb_j = self._pending_prop
         self._pending_prop = None
-        self._commit_prop(slot, *device_get((T.r, T.q, sb_j)))
+        with syncstats.sync("resolve_prop"):
+            prop = device_get((T.r, T.q, sb_j))
+        self._commit_prop(slot, *prop)
 
     def fetch_with_pending(self, tree):
         """device_get `tree`, committing any deferred propagation in the same
         wait for the card (one round trip instead of two)."""
-        syncstats.bump("associate_fetch")
         if self._pending_prop is None:
-            return device_get(tree)
+            with syncstats.sync("associate_fetch"):
+                return device_get(tree)
         slot, T, sb_j = self._pending_prop
         self._pending_prop = None
-        res, prop = device_get((tree, (T.r, T.q, sb_j)))
+        with syncstats.sync("associate_fetch"):
+            res, prop = device_get((tree, (T.r, T.q, sb_j)))
         self._commit_prop(slot, *prop)
         return res
 
@@ -1039,18 +1048,19 @@ class Estimator:
         linearization biases come from (current estimates for optimize, FEJ
         for marginalization)."""
         K, P = self.cfg.max_imu_links, self.cfg.imu_samples
-        ts = np.zeros((K, P))
-        gy = np.zeros((K, P, 3))
-        ac = np.zeros((K, P, 3))
-        t1 = np.zeros(K)
-        sbr = np.zeros((K, 9))
-        for i, l in enumerate(links):
-            ts[i], gy[i], ac[i] = l.ts - l.t0, l.gyro, l.acc
-            t1[i] = l.t1 - l.t0
-            sbr[i] = sb_source[self.states[l.id_a].slot]
-        return self._preintegrate_fn(
-            self.imu_params, self._t(ts), self._t(gy), self._t(ac), self._t(np.zeros(K)), self._t(t1),
-            self._t(sbr))
+        with Timer("preintegrate"):
+            ts = np.zeros((K, P))
+            gy = np.zeros((K, P, 3))
+            ac = np.zeros((K, P, 3))
+            t1 = np.zeros(K)
+            sbr = np.zeros((K, 9))
+            for i, l in enumerate(links):
+                ts[i], gy[i], ac[i] = l.ts - l.t0, l.gyro, l.acc
+                t1[i] = l.t1 - l.t0
+                sbr[i] = sb_source[self.states[l.id_a].slot]
+            return self._preintegrate_fn(
+                self.imu_params, self._t(ts), self._t(gy), self._t(ac), self._t(np.zeros(K)), self._t(t1),
+                self._t(sbr))
 
     def _empty_pre_template(self):
         if "pre_tmpl" not in self._jit_cache:
@@ -1066,21 +1076,21 @@ class Estimator:
         solve), runs the chunked wall-clock budget contract (the reference's
         CeresIterationCallback semantics): >= min_iterations always, up to
         max_iterations while under budget."""
-        _tb0 = time.perf_counter()
-        tier = self._select_tier()
-        LO = None if tier is None else (tier["L"], tier["O"])
-        problem = self._build_problem(tier=tier)
-        Timing.add("host: build problem", time.perf_counter() - _tb0)
-        if time_limit is not None and self._mesh is None:
-            states, diag = self._optimize_deadline(
-                problem, time_limit, min_iterations if min_iterations is not None else 1,
-                max_iterations if max_iterations is not None else self.cfg.max_iterations, LO=LO)
-        else:
-            fn = self._optimize_fn(max_iterations, LO=LO)
-            states, diag = fn(problem)
-            if capture.enabled:
-                capture.record("optimize", fn, problem)
-                capture.record_output("optimize", (states, diag))
+        with Timer("host: build problem"):
+            tier = self._select_tier()
+            LO = None if tier is None else (tier["L"], tier["O"])
+            problem = self._build_problem(tier=tier)
+        with timing.span("optimize.enqueue"):
+            if time_limit is not None and self._mesh is None:
+                states, diag = self._optimize_deadline(
+                    problem, time_limit, min_iterations if min_iterations is not None else 1,
+                    max_iterations if max_iterations is not None else self.cfg.max_iterations, LO=LO)
+            else:
+                fn = self._optimize_fn(max_iterations, LO=LO)
+                states, diag = fn(problem)
+                if capture.enabled:
+                    capture.record("optimize", fn, problem)
+                    capture.record_output("optimize", (states, diag))
         if tier is not None and os.environ.get("OKVIS_TIER_CROSSCHECK"):
             p_full = self._build_problem()
             s2, d2 = self._optimize_fn(max_iterations)(p_full)
@@ -1104,13 +1114,32 @@ class Estimator:
         extra_quality = diag.landmark_quality is None
         if not extra_quality:
             pulls.append(diag.landmark_quality)
-        syncstats.bump("optimize_fetch")
-        flat = torch.cat([p.reshape(-1).to(self.dtype) for p in pulls]).cpu().to(torch.float64).numpy()
+        # in a traced frame the iteration counts ride the same copy
+        solver_pulls = ([diag.cost_history, diag.accepted] + ([] if diag.initial_cost is None else [diag.initial_cost])
+                        if timing.tracing() else [])
+        pulls += solver_pulls
+        with syncstats.sync("optimize_fetch"):
+            flat = torch.cat([p.reshape(-1).to(self.dtype) for p in pulls]).cpu().to(torch.float64).numpy()
         fetched, off = [], 0
         for p in pulls:
             fetched.append(flat[off: off + p.numel()].reshape(p.shape))
             off += p.numel()
-        _tu0 = time.perf_counter()
+        if solver_pulls:
+            k = len(pulls) - len(solver_pulls)
+            hist, acc = fetched[k], fetched[k + 1]
+            cost0 = float(fetched[k + 2]) if diag.initial_cost is not None else None
+            timing.annotate("3.1 optimization", iterations=int(hist.size), accepted=int(acc.sum()),
+                            useful=useful_iterations(hist, acc.astype(bool), cost0))
+        with Timer("host: optimize update"):
+            self._update_from_fetch(fetched, tier, problem, states, extra_quality)
+        if verbose:
+            print(f"optimize: cost {float(diag.final_cost):.3f} "
+                  f"accepted {int(diag.accepted.sum())}/{self.cfg.max_iterations}")
+        return diag
+
+    def _update_from_fetch(self, fetched, tier, problem, states, extra_quality) -> None:
+        """optimize's host update from its one fetch: the window's tables,
+        the calibration and the landmark qualities."""
         if tier is not None:
             # scatter the compact landmark table back to the stable slots
             self.r_WS, self.q_WS, self.sb = (f.copy() for f in fetched[:3])
@@ -1132,19 +1161,15 @@ class Estimator:
         if not extra_quality:
             quality = fetched[i]
         else:
-            syncstats.bump("lmq_fetch")
-            quality = _host(self._landmark_quality_fn(problem._replace(states=states)))
+            quality = self._landmark_quality_fn(problem._replace(states=states))
+            with syncstats.sync("lmq_fetch"):
+                quality = _host(quality)
         for lm in self.landmarks.values():
             lm.quality = float(quality[tier["remap"][lm.slot] if tier is not None else lm.slot])
             # a landmark becomes initialized once its 3x3 Hessian is
             # well-conditioned (depth observable), Estimator.cpp:880-900
             if not lm.initialized and lm.quality > 1e-3:
                 lm.initialized = True
-        Timing.add("host: optimize update", time.perf_counter() - _tu0)
-        if verbose:
-            print(f"optimize: cost {float(diag.final_cost):.3f} "
-                  f"accepted {int(diag.accepted.sum())}/{self.cfg.max_iterations}")
-        return diag
 
     # ------------------------------------------------------------------
     # marginalization (Estimator::applyMarginalizationStrategy)
@@ -1325,7 +1350,8 @@ class Estimator:
             # (identical in full mode; remapped in a tier)
             marg_fn = self._marginalize_fn_LO(m_LO)
             marg_args = (problem, self._i(marg_dense), self._i(keep_dense), problem.lm_mask)
-            out = marg_fn(*marg_args)
+            with timing.span("marginalize"):
+                out = marg_fn(*marg_args)
             if capture.enabled:
                 capture.record("marginalize", marg_fn, *marg_args)
                 capture.record_output("marginalize", out)

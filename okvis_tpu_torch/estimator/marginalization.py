@@ -26,16 +26,19 @@ import torch
 
 from ..solver.assemble import NormalEqs
 from ..solver.structure import WindowConfig
+from ..utils import syncstats
 
 
 def _eigh(A: torch.Tensor):
     """torch.linalg.eigh, redone in float64 (and cast back) where it fails
-    to converge."""
-    try:
-        return torch.linalg.eigh(A)
-    except torch.linalg.LinAlgError:
-        w, V = torch.linalg.eigh(A.to(torch.float64))
-        return w.to(A.dtype), V.to(A.dtype)
+    to converge. Its check of the result waits for the card (syncstats
+    `marg_eigh`)."""
+    with syncstats.sync("marg_eigh"):
+        try:
+            return torch.linalg.eigh(A)
+        except torch.linalg.LinAlgError:
+            w, V = torch.linalg.eigh(A.to(torch.float64))
+            return w.to(A.dtype), V.to(A.dtype)
 
 
 def pinv_sym(A: torch.Tensor, active_mask: torch.Tensor = None) -> torch.Tensor:

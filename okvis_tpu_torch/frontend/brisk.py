@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import set_full_precision
+from ..utils import syncstats
 from .detection import Keypoints, detect_keypoints, detect_keypoints_pyramid
 
 DESCRIPTOR_BITS = 512
@@ -140,7 +141,10 @@ def _describe_from_levels(
     dev = levels.device
     flat = levels.reshape(-1)
     ca, sa = torch.cos(angles), torch.sin(angles)  # (C,)
-    p = torch.from_numpy(_PATTERN_PTS).to(dev)  # (60, 2)
+    # the pattern's tables are copied from the host on every call, and each
+    # copy waits for the card's stream (syncstats `upload`)
+    with syncstats.sync("upload"):
+        p = torch.from_numpy(_PATTERN_PTS).to(dev)  # (60, 2)
     # rotated offsets per camera: (C, 60)
     px = ca[:, None] * p[None, :, 0] - sa[:, None] * p[None, :, 1]
     py = sa[:, None] * p[None, :, 0] + ca[:, None] * p[None, :, 1]
@@ -156,7 +160,8 @@ def _describe_from_levels(
 
     groups, start = [], 0
     for lvl, cnt in enumerate(_LEVEL_COUNTS):
-        sel = torch.from_numpy(_LEVEL_ORDER[start:start + cnt]).to(dev)
+        with syncstats.sync("upload"):
+            sel = torch.from_numpy(_LEVEL_ORDER[start:start + cnt]).to(dev)
         start += cnt
         x = xs[:, :, sel]
         y = ys[:, :, sel]
@@ -175,9 +180,11 @@ def _describe_from_levels(
             + v10 * (1 - fx) * fy
             + v11 * fx * fy
         )
-    samples = torch.cat(groups, dim=-1)[:, :, torch.from_numpy(_LEVEL_INV).to(dev)]
-    pi = torch.from_numpy(_PAIR_I).to(dev).long()
-    pj = torch.from_numpy(_PAIR_J).to(dev).long()
+    with syncstats.sync("upload", 3):
+        inv = torch.from_numpy(_LEVEL_INV).to(dev)
+        samples = torch.cat(groups, dim=-1)[:, :, inv]
+        pi = torch.from_numpy(_PAIR_I).to(dev).long()
+        pj = torch.from_numpy(_PAIR_J).to(dev).long()
     return _pack_bits(samples[:, :, pi] < samples[:, :, pj])
 
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.detection_cuda import gauss_taps
+from ..utils import syncstats
 
 
 class Keypoints(NamedTuple):
@@ -168,7 +169,8 @@ def select_keypoints(
     yi = yy.to(torch.int64).clamp(1, H - 2)
     xi = xx.to(torch.int64).clamp(1, W - 2)
     base = yi * W + xi
-    offs = torch.tensor([0, 1, -1, W, -W], dtype=torch.int64, device=dev)
+    with syncstats.sync("upload"):
+        offs = torch.tensor([0, 1, -1, W, -W], dtype=torch.int64, device=dev)
     v = torch.gather(raw.reshape(C, -1), 1, (base[:, :, None] + offs).reshape(C, -1))
     c, vr, vl, vd, vu = v.reshape(C, max_keypoints, 5).unbind(-1)
     dx = 0.5 * (vr - vl)

@@ -23,6 +23,7 @@ JAX draws; the five-point seed comes from a host generator.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -143,7 +144,8 @@ class Frontend:
             kin.SE3(r=T_WS.r[None], q=T_WS.q[None]),
             kin.SE3(r=self.rig.T_SC.r[:C], q=self.rig.T_SC.q[:C]),
         )
-        down = T_WC.q.new_tensor([0.0, 0.0, -1.0])
+        with syncstats.sync("upload"):
+            down = T_WC.q.new_tensor([0.0, 0.0, -1.0])
         g_C = kin.quat_rotate(kin.quat_conjugate(T_WC.q), down)
         return gravity_extraction_angle(g_C).to(torch.float32)
 
@@ -152,10 +154,13 @@ class Frontend:
         per-camera extraction angles. `images` are (H, W) arrays or tensors."""
         cfg = self.cfg
         C = len(images)
-        stack = torch.stack(
-            [torch.as_tensor(im, dtype=torch.float32, device=self.device) for im in images])
+        on_device = all(isinstance(im, torch.Tensor) and im.device.type == self.device.type for im in images)
+        with contextlib.nullcontext() if on_device else syncstats.sync("upload"):
+            stack = torch.stack(
+                [torch.as_tensor(im, dtype=torch.float32, device=self.device) for im in images])
         if T_WS is not None:  # the angles are computed in the rig's dtype
-            T_WS = kin.SE3(r=T_WS.r.to(self.device, self.rig.dtype), q=T_WS.q.to(self.device, self.rig.dtype))
+            with contextlib.nullcontext() if T_WS.r.device.type == self.device.type else syncstats.sync("upload", 2):
+                T_WS = kin.SE3(r=T_WS.r.to(self.device, self.rig.dtype), q=T_WS.q.to(self.device, self.rig.dtype))
         angles = self._extraction_angles(T_WS, C)
         sizes_b = None
         if cfg.detection_octaves > 0 or cfg.detection_masks is not None:
@@ -182,8 +187,8 @@ class Frontend:
                 capture.record_output("detect", (kps_b, desc_b))
         # one joint host copy of every camera's uv/mask mirrors (and sizes):
         # the association path reads them many times
-        syncstats.bump("detect_fetch")
-        uv_h, mask_h, sizes_h = device_get((kps_b.uv, kps_b.mask, sizes_b))
+        with syncstats.sync("detect_fetch"):
+            uv_h, mask_h, sizes_h = device_get((kps_b.uv, kps_b.mask, sizes_b))
         out = []
         for c in range(C):
             fd = FrameData(
@@ -446,7 +451,8 @@ class Frontend:
         ]
 
         def t(x, dt=dtype):
-            return torch.as_tensor(np.asarray(x), device=dev).to(dt)
+            with syncstats.sync("upload"):
+                return torch.as_tensor(np.asarray(x), device=dev).to(dt)
 
         T_WC_a_stk = kin.SE3(r=t([[tc[0] for tc in row] for row in T_WC_a_list]),
                              q=t([[tc[1] for tc in row] for row in T_WC_a_list]))
@@ -608,8 +614,8 @@ class Frontend:
                         self.rig.specs[cam], estimator.intrinsics[cam], desc_a_t[:, cam], b(losers),
                         t(hp_rows[:, cam]), T_CW_b, fb.descriptors, b(free_b), uv_b_t[cam], t(std_b[cam]),
                         sigma_pos2, float(cfg.gate_radius_px), threshold=cfg.matching_threshold)
-                    syncstats.bump("assoc_recovery")
-                    assign_r = assign_r.cpu().numpy()
+                    with syncstats.sync("assoc_recovery"):
+                        assign_r = assign_r.cpu().numpy()
                     nonlocal_t["recovery"] += time.perf_counter() - t_rec0
                     nonlocal_t["recovery_cpu"] += time.thread_time() - t_rec0_cpu
                     resolve_3d2d(assign_r, collect_losers=False)
@@ -784,7 +790,8 @@ class Frontend:
                 intr_a, intr_b = self.rig.intrinsics[ca], self.rig.intrinsics[cb]
 
             def dev(x, dt=dtype):
-                return torch.as_tensor(x).to(self.device, dt)
+                with syncstats.sync("upload"):
+                    return torch.as_tensor(x).to(self.device, dt)
 
             def pose(T):
                 return kin.SE3(r=dev(T.r), q=dev(T.q))
@@ -799,7 +806,8 @@ class Frontend:
                 dev(self._kp_std(fa)), dev(self._kp_std(fb)),
                 threshold=self.cfg.matching_threshold,
             )
-            results.append((ca, cb, *(x.cpu().numpy() for x in out)))
+            with syncstats.sync("stereo_standalone"):
+                results.append((ca, cb, *(x.cpu().numpy() for x in out)))
         return results
 
     def _match_stereo(self, estimator, multiframe: MultiFrame, T_WS: kin.SE3) -> None:
@@ -808,7 +816,6 @@ class Frontend:
         creates the landmarks. Used when no association round carried the
         stereo phase (first frame, mixed-model rigs)."""
         for ca, cb, assign, hp, valid, par, can_init in self.match_stereo(multiframe, T_WS, estimator):
-            syncstats.bump("stereo_standalone")
             self._resolve_stereo_pair(estimator, multiframe, ca, cb, assign, hp, valid, par, can_init)
 
     def _resolve_stereo_pair(self, estimator, multiframe, ca, cb, assign, hp_arr, valid, par, can_init):
@@ -877,14 +884,17 @@ class Frontend:
             focal = float(intr[0])
             n_corr = len(pairs[:K])
 
-            syncstats.bump("ransac2d2d")
-            t = lambda x: torch.as_tensor(x).to(self.device, dtype)  # noqa: E731
+            with syncstats.sync("upload", 3):
+                uv_a_t, uv_b_t, mask_t = (torch.as_tensor(uv_a).to(self.device, dtype),
+                                          torch.as_tensor(uv_b).to(self.device, dtype),
+                                          torch.as_tensor(mask).to(self.device))
             rot, rel, bear_a, bear_b = kernels.ransac_2d2d_px(
                 self._draw((N_HYP, 2)), self._draw((N_HYP, 8)), spec, intr,
-                t(uv_a), t(uv_b), torch.as_tensor(mask).to(self.device), focal, self.cfg.ransac_threshold_px2,
+                uv_a_t, uv_b_t, mask_t, focal, self.cfg.ransac_threshold_px2,
             )
-            rot_n, rot_inl, rel_n, rel_inl, rel_model, bear_a_np, bear_b_np = device_get(
-                (rot.num_inliers, rot.inliers, rel.num_inliers, rel.inliers, rel.model, bear_a, bear_b))
+            with syncstats.sync("ransac2d2d"):
+                rot_n, rot_inl, rel_n, rel_inl, rel_model, bear_a_np, bear_b_np = device_get(
+                    (rot.num_inliers, rot.inliers, rel.num_inliers, rel.inliers, rel.model, bear_a, bear_b))
             rot_n, rel_n = int(rot_n), int(rel_n)
             if n_corr <= self.cfg.fivepoint_max_corr:
                 # low overlap: the Stewenius 5-point minimal solver (host,

@@ -57,9 +57,9 @@ from ..frontend.frame import MultiFrame
 from ..frontend.frontend import Frontend, FrontendConfig
 from ..imu.preintegration import init_pose_from_imu
 from ..solver.structure import WindowConfig
-from ..utils import syncstats
+from ..utils import syncstats, timing
 from ..utils.ids import IdProvider
-from ..utils.timing import Timer, Timing
+from ..utils.timing import Timer, Timing, Tracer
 from .queues import ShutdownError, ThreadSafeQueue
 from .synchronizer import FrameSynchronizer, ImuFrameSynchronizer
 
@@ -245,6 +245,8 @@ class ThreadedVio:
         self._frames_processed = 0
         # the first exception a worker thread raised
         self._error: Optional[BaseException] = None
+        # the span tree of each frame while tracing is on (set_tracing)
+        self._tracer = Tracer()
 
         self._running = True
         self._threads: List[threading.Thread] = []
@@ -266,6 +268,7 @@ class ThreadedVio:
         if timestamp_ns < self._last_added_ns - tol_ns:
             return False
         self._last_added_ns = timestamp_ns
+        self._tracer.image_added(timestamp_ns)
         q = self.camera_queues[cam_idx]
         item = (timestamp_ns, cam_idx, image)
         self._count("_images_fed")
@@ -390,8 +393,8 @@ class ThreadedVio:
                 est._t((t0_ns - epoch) / NS), est._t((t_chunk - epoch) / NS))
             t0_ns = t_chunk
         self._prop_state = (t0_ns, T, sb)
-        syncstats.bump("propagate_publish")
-        r, q, sb_h = device_get((T.r, T.q, sb))
+        with syncstats.sync("propagate_publish"):
+            r, q, sb_h = device_get((T.r, T.q, sb))
         self.propagated_state_callback(
             t_ns, kin.SE3(r=torch.from_numpy(np.array(r, np.float64)), q=torch.from_numpy(np.array(q, np.float64))),
             np.array(sb_h, np.float64))
@@ -460,140 +463,161 @@ class ThreadedVio:
 
     def _frame_consumer_loop(self, cam: int) -> None:
         """Detection stage (frameConsumerLoop, ThreadedKFVio.cpp:322-453)."""
-        est = self.estimator
+        tol_ns = int(self.params.camera_params.timestamp_tolerance * NS)
         while self._running:
             try:
                 ts, cam_idx, image = self.camera_queues[cam].pop_blocking()
             except ShutdownError:
                 return
-            with Timer(f"1.{cam} detect"):
-                with self._state_lock:
-                    group = self.frame_synchronizer.add_frame(ts, cam_idx, image)
+            with self._state_lock:
+                group = self.frame_synchronizer.add_frame(ts, cam_idx, image)
             if group is None:
                 self._count("_images_consumed")
                 continue
-            self._count("_frames_enqueued")
-            # wait until IMU covers this frame (ImuFrameSynchronizer.cpp:64-75)
-            if not self.imu_synchronizer.wait_for_up_to_date_imu_data(
-                group["timestamp_ns"] + IMU_OVERLAP_NS, timeout=5.0
-            ):
-                # dropped before reaching the processing stage: balance the
-                # quiescence counters so wait_idle does not spin forever
-                self._count("_frames_enqueued", -1)
-                self._count("_images_consumed")
-                continue
-            # predicted pose for gravity-aligned extraction; before any
-            # optimized state exists, gravity-align from the IMU buffer (ref
-            # initPoseFromImu in frameConsumerLoop, ThreadedKFVio.cpp:397-412),
-            # else the first keyframe's descriptors use a different
-            # extraction angle than every later frame and never match them
-            last = self._last_optimized
-            if last is not None:
-                T_WS_pred = last.T_WS
-            else:
-                T_WS_pred = None
-                _ts, _gy, acc = self._get_imu_slice(group["timestamp_ns"] - NS, group["timestamp_ns"] + IMU_OVERLAP_NS)
-                if len(_ts) >= 2:
-                    T_WS_pred = init_pose_from_imu(
-                        torch.as_tensor(acc.mean(axis=0), dtype=est.dtype, device=est.device))
-            with Timer("1.x detectAndDescribe"):
-                images = [group["images"][c] for c in sorted(group["images"].keys())]
-                frames = self.frontend.detect_and_describe_multi(images, T_WS_pred)
-            mf = MultiFrame(id=IdProvider.new_id(), timestamp=group["timestamp_ns"] / NS, frames=frames)
-            mf.timestamp_ns = group["timestamp_ns"]
-            # only the group-completing image is still unaccounted (the
-            # earlier ones were counted when their add_frame returned None)
+            with self._tracer.frame(group["timestamp_ns"], start=True, tolerance_ns=tol_ns):
+                self._detect(group)
+
+    def _detect(self, group: dict) -> None:
+        """A complete camera group: wait until the IMU covers it, detect
+        and describe, and hand the multiframe to the processing stage."""
+        est = self.estimator
+        self._count("_frames_enqueued")
+        # wait until IMU covers this frame (ImuFrameSynchronizer.cpp:64-75)
+        with timing.span("wait.imu"):
+            covered = self.imu_synchronizer.wait_for_up_to_date_imu_data(
+                group["timestamp_ns"] + IMU_OVERLAP_NS, timeout=5.0)
+        if not covered:
+            # dropped before reaching the processing stage: balance the
+            # quiescence counters so wait_idle does not spin forever
+            self._tracer.close_frame(group["timestamp_ns"], dropped=True)
+            self._count("_frames_enqueued", -1)
             self._count("_images_consumed")
-            self.keypoint_queue.push_blocking_if_full(mf, 1)
+            return
+        # predicted pose for gravity-aligned extraction; before any
+        # optimized state exists, gravity-align from the IMU buffer (ref
+        # initPoseFromImu in frameConsumerLoop, ThreadedKFVio.cpp:397-412),
+        # else the first keyframe's descriptors use a different
+        # extraction angle than every later frame and never match them
+        last = self._last_optimized
+        if last is not None:
+            T_WS_pred = last.T_WS
+        else:
+            T_WS_pred = None
+            _ts, _gy, acc = self._get_imu_slice(group["timestamp_ns"] - NS, group["timestamp_ns"] + IMU_OVERLAP_NS)
+            if len(_ts) >= 2:
+                with syncstats.sync("upload"):
+                    acc_mean = torch.as_tensor(acc.mean(axis=0), dtype=est.dtype, device=est.device)
+                T_WS_pred = init_pose_from_imu(acc_mean)
+        with Timer("1.x detectAndDescribe"):
+            images = [group["images"][c] for c in sorted(group["images"].keys())]
+            frames = self.frontend.detect_and_describe_multi(images, T_WS_pred)
+        mf = MultiFrame(id=IdProvider.new_id(), timestamp=group["timestamp_ns"] / NS, frames=frames)
+        mf.timestamp_ns = group["timestamp_ns"]
+        # only the group-completing image is still unaccounted (the
+        # earlier ones were counted when their add_frame returned None)
+        self._count("_images_consumed")
+        timing.begin("wait.keypoints")
+        self.keypoint_queue.push_blocking_if_full(mf, 1)
 
     def _processing_loop(self) -> None:
         """Matching + optimization + marginalization (matchingLoop +
         optimizationLoop, ThreadedKFVio.cpp:456-539, 720-854)."""
-        est = self.estimator
         while self._running:
             try:
                 mf: MultiFrame = self.keypoint_queue.pop_blocking()
             except ShutdownError:
                 return
-            # _frames_processed is counted at every exit of this iteration
-            # (drop paths and completion): wait_idle must not report
-            # quiescence while a frame is mid-optimization
-            ts_ns = mf.timestamp_ns
-            epoch0 = self._epoch_ns or 0
-            last_ns = epoch0 + int(est._last_state().timestamp * NS) if est.states else ts_ns
-            imu_ts, gyro, acc = self._get_imu_slice(min(last_ns, ts_ns), ts_ns)
-            if len(imu_ts) < 2:
-                self._count("_frames_processed")
-                continue
-            with Timer("2.1 addStates"):
-                try:
-                    epoch = self._epoch_ns or 0
-                    # defer_fetch: the propagated pose stays on the device
-                    # and rides the association's one fetch
-                    sid = est.add_states(
-                        self._to_sec(ts_ns),
-                        (imu_ts - epoch) / NS,
-                        gyro,
-                        acc,
-                        as_keyframe=False,
-                        frame_id=mf.id,
-                        defer_fetch=True,
-                    )
-                except WindowFullError:
-                    # "Failed to add state! will drop multiframe."
-                    # (ThreadedKFVio.cpp:512)
-                    self._count("_frames_processed")
-                    continue
-            est.multiframes[mf.id] = mf
-            T_WS_prop, sb_prop = est.last_prop_device()
-            with Timer("2.4 matching"):
-                as_keyframe = self.frontend.data_association_and_initialization(est, T_WS_prop, mf, sb_prop=sb_prop)
-            est.set_keyframe(sid, as_keyframe)
-            self._write_tracks_csv(ts_ns, mf)
-            with Timer("3.1 optimization"):
-                # real-time knob (ref setOptimizationTimeLimit): non-blocking
-                # mode runs the chunked wall-clock budget contract; blocking
-                # mode runs full iterations (ThreadedKFVio.cpp:312-319)
-                opt = self.params.optimization
-                t0 = time.perf_counter()
-                if self.blocking:
-                    est.optimize()
-                else:
-                    est.optimize(time_limit=opt.time_limit, min_iterations=opt.min_iterations,
-                                 max_iterations=opt.max_iterations)
-                self._last_opt_duration = time.perf_counter() - t0
-                self.opt_latencies.append(self._last_opt_duration)
-            with Timer("3.2 marginalization"):
-                removed_hp = (
-                    {lm_id: est.get_landmark(lm_id) for lm_id in list(est.landmarks.keys())}
-                    if self.transferred_landmarks_callback
-                    else None
-                )
-                removed = est.apply_marginalization_strategy()
-                if removed and removed_hp is not None:
-                    self.transferred_landmarks_callback(
-                        ts_ns, {i: removed_hp[i] for i in removed if i in removed_hp})
-            # IMU links own their sample copies, so the buffer only serves
-            # new-frame slices and repropagation: trim to a margin behind the
-            # newest state (ref deleteImuMeasurements, ThreadedKFVio.cpp:756-772)
-            self._trim_imu(epoch0 + int(est._states_by_time()[-1].timestamp * NS) - NS // 2)
+            with self._tracer.frame(mf.timestamp_ns):
+                timing.end("wait.keypoints")
+                self._process(mf)
 
-            if self.posegraph is not None and as_keyframe:
-                with Timer("3.3 posegraph"):
-                    self._feed_posegraph(est, sid, mf, ts_ns)
-
-            result = StateEstimate(
-                timestamp_ns=ts_ns,
-                T_WS=est.get_T_WS(sid),
-                speed_and_bias=est.get_speed_and_bias(sid),
-                is_keyframe=as_keyframe,
-            )
-            with self._state_lock:
-                self._last_optimized = result
-                self._reprop_needed = True  # repropagationNeeded_ (ref :774-794)
-                self.trajectory.append(result)
-            self.result_queue.push_nonblocking_dropping_if_full(result, 10)
+    def _process(self, mf: MultiFrame) -> None:
+        """One multiframe through the back end, its state published.
+        _frames_processed is counted at every exit (drop paths and
+        completion): wait_idle must not report quiescence while a frame is
+        mid-optimization."""
+        est = self.estimator
+        ts_ns = mf.timestamp_ns
+        epoch0 = self._epoch_ns or 0
+        last_ns = epoch0 + int(est._last_state().timestamp * NS) if est.states else ts_ns
+        imu_ts, gyro, acc = self._get_imu_slice(min(last_ns, ts_ns), ts_ns)
+        if len(imu_ts) < 2:
+            self._tracer.close_frame(ts_ns, id=mf.id, dropped=True)
             self._count("_frames_processed")
+            return
+        with Timer("2.1 addStates"):
+            try:
+                epoch = self._epoch_ns or 0
+                # defer_fetch: the propagated pose stays on the device
+                # and rides the association's one fetch
+                sid = est.add_states(
+                    self._to_sec(ts_ns),
+                    (imu_ts - epoch) / NS,
+                    gyro,
+                    acc,
+                    as_keyframe=False,
+                    frame_id=mf.id,
+                    defer_fetch=True,
+                )
+            except WindowFullError:
+                # "Failed to add state! will drop multiframe."
+                # (ThreadedKFVio.cpp:512)
+                sid = None
+        if sid is None:
+            self._tracer.close_frame(ts_ns, id=mf.id, dropped=True)
+            self._count("_frames_processed")
+            return
+        est.multiframes[mf.id] = mf
+        T_WS_prop, sb_prop = est.last_prop_device()
+        with Timer("2.4 matching"):
+            as_keyframe = self.frontend.data_association_and_initialization(est, T_WS_prop, mf, sb_prop=sb_prop)
+        est.set_keyframe(sid, as_keyframe)
+        self._write_tracks_csv(ts_ns, mf)
+        with Timer("3.1 optimization"):
+            # real-time knob (ref setOptimizationTimeLimit): non-blocking
+            # mode runs the chunked wall-clock budget contract; blocking
+            # mode runs full iterations (ThreadedKFVio.cpp:312-319)
+            opt = self.params.optimization
+            t0 = time.perf_counter()
+            if self.blocking:
+                est.optimize()
+            else:
+                est.optimize(time_limit=opt.time_limit, min_iterations=opt.min_iterations,
+                             max_iterations=opt.max_iterations)
+            self._last_opt_duration = time.perf_counter() - t0
+            self.opt_latencies.append(self._last_opt_duration)
+        with Timer("3.2 marginalization"):
+            removed_hp = (
+                {lm_id: est.get_landmark(lm_id) for lm_id in list(est.landmarks.keys())}
+                if self.transferred_landmarks_callback
+                else None
+            )
+            removed = est.apply_marginalization_strategy()
+            if removed and removed_hp is not None:
+                self.transferred_landmarks_callback(
+                    ts_ns, {i: removed_hp[i] for i in removed if i in removed_hp})
+        # IMU links own their sample copies, so the buffer only serves
+        # new-frame slices and repropagation: trim to a margin behind the
+        # newest state (ref deleteImuMeasurements, ThreadedKFVio.cpp:756-772)
+        self._trim_imu(epoch0 + int(est._states_by_time()[-1].timestamp * NS) - NS // 2)
+
+        if self.posegraph is not None and as_keyframe:
+            with Timer("3.3 posegraph"):
+                self._feed_posegraph(est, sid, mf, ts_ns)
+
+        result = StateEstimate(
+            timestamp_ns=ts_ns,
+            T_WS=est.get_T_WS(sid),
+            speed_and_bias=est.get_speed_and_bias(sid),
+            is_keyframe=as_keyframe,
+        )
+        with self._state_lock:
+            self._last_optimized = result
+            self._reprop_needed = True  # repropagationNeeded_ (ref :774-794)
+            self.trajectory.append(result)
+        self.result_queue.push_nonblocking_dropping_if_full(result, 10)
+        self._tracer.close_frame(ts_ns, id=mf.id, keyframe=as_keyframe)
+        self._count("_frames_processed")
 
     def _feed_posegraph(self, est: Estimator, sid: int, mf: MultiFrame, ts_ns: int) -> None:
         """Hand the new keyframe's camera 0 to the pose-graph layer: its
@@ -781,6 +805,23 @@ class ThreadedVio:
                 is_keyframe=lo["is_keyframe"],
             )
             self._reprop_needed = True
+
+    # ------------------------------------------------------------------
+    # tracing (absent in the reference)
+    # ------------------------------------------------------------------
+    def set_tracing(self, on: bool = True) -> None:
+        """Record a span tree for every frame whose camera group completes
+        from now on (off by default; utils.timing): the stages, the waits
+        for the IMU and between the threads, preintegration, the solve's
+        enqueue, each blocking fetch (`sync.<tag>`) and the solver's
+        iteration counts, in memory until export_trace."""
+        self._tracer.enabled = on
+
+    def export_trace(self) -> dict:
+        """The spans of every traced frame that finished (published or
+        dropped) since the last export, removed from memory
+        (utils.timing.Tracer.export)."""
+        return self._tracer.export()
 
     def _raise_worker_error(self) -> None:
         if self._error is not None:

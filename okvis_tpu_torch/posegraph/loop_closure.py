@@ -71,8 +71,8 @@ def relative_pose_from_verification(
     p_C = R_CW p_W + t  =>  T_CW = (t, R_CW); T_WC = T_CW^-1;
     T_WS_query = T_WC * T_SC^-1; edge = T_WS_cand^-1 * T_WS_query.
     One host read of the model (syncstats `posegraph_verify`)."""
-    syncstats.bump("posegraph_verify")
-    model = torch.cat([ver.R_CW.reshape(-1), ver.t_C, ver.success.reshape(1).to(ver.t_C.dtype)]).cpu().numpy()
+    with syncstats.sync("posegraph_verify"):
+        model = torch.cat([ver.R_CW.reshape(-1), ver.t_C, ver.success.reshape(1).to(ver.t_C.dtype)]).cpu().numpy()
     if not model[12]:
         return None
     R_CW = np.asarray(model[:9].reshape(3, 3), np.float64)

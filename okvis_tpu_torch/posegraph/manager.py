@@ -185,8 +185,8 @@ class PoseGraphManager:
             self._draw((lc.N_HYP, 3)), t(as_words(desc_c)), t(lm_valid), t(np.asarray(lms_W, np.float64)),
             t(as_words(dq)), t(mq), t(bq), focal=cfg.focal, match_threshold=cfg.match_threshold,
             min_inliers=cfg.min_inliers)
-        syncstats.bump("posegraph_verify")
-        num_inliers, accepted = (int(x) for x in torch.stack([ver.num_inliers, ver.success.to(torch.int64)]).cpu())
+        with syncstats.sync("posegraph_verify"):
+            num_inliers, accepted = (int(x) for x in torch.stack([ver.num_inliers, ver.success.to(torch.int64)]).cpu())
         event = LoopEvent(query_id=kf_id, candidate_id=cand_id, score=score, num_inliers=num_inliers,
                           accepted=bool(accepted))
         self.loop_events.append(event)
@@ -199,9 +199,9 @@ class PoseGraphManager:
         return event
 
     def _optimize_and_update_correction(self, latest_id: int) -> None:
-        syncstats.bump("posegraph_solve")
-        self.graph.optimize(max_iterations=self.cfg.max_iterations, pcg_iters=self.cfg.pcg_iters,
-                            solver=self.cfg.solver)
+        with syncstats.sync("posegraph_solve"):
+            self.graph.optimize(max_iterations=self.cfg.max_iterations, pcg_iters=self.cfg.pcg_iters,
+                                solver=self.cfg.solver)
         r_opt, q_opt = self.graph.get_pose(latest_id)
         r_inv, q_inv = np_se3.inverse(*self.vio_pose_of[latest_id])
         self.corr_r, self.corr_q = np_se3.compose(r_opt, q_opt, r_inv, q_inv)

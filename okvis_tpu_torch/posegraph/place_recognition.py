@@ -167,9 +167,9 @@ class KeyframeDatabase:
         res = score_against_database(
             torch.from_numpy(as_words(dq)).to(dev), torch.from_numpy(mq).to(dev), self.device_desc,
             self.device_mask, torch.from_numpy(allowed).to(dev), vote_threshold=vote_threshold)
-        syncstats.bump("posegraph_query", 2)
-        idx = int(res.best_index)
-        scores = res.scores.cpu().numpy()
+        with syncstats.sync("posegraph_query", 2):
+            idx = int(res.best_index)
+            scores = res.scores.cpu().numpy()
         score = float(scores[idx])
         kf_id = self.kf_ids[idx] if score >= 0 else None
         return kf_id, max(score, 0.0), scores

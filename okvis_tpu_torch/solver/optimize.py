@@ -39,6 +39,27 @@ class SolveDiagnostics(NamedTuple):
     # (L,) landmark quality sqrt(lmin/lmax) of the 3x3 landmark Hessians at
     # the final iterate
     landmark_quality: torch.Tensor = None
+    # the cost before the first iteration
+    initial_cost: torch.Tensor = None
+
+
+# Ceres's default Solver::Options::function_tolerance; upstream's
+# Estimator::optimize (Estimator.cpp:842-906) leaves it at the default
+FUNCTION_TOLERANCE = 1e-6
+
+
+def useful_iterations(cost_history, accepted, initial_cost=None) -> int:
+    """The number (counted from 1) of the last iteration that lowered the
+    cost by at least FUNCTION_TOLERANCE of the cost before it; 0 if none
+    did. cost_history[i] is the cost after iteration i (a rejected step
+    keeps the cost). Without `initial_cost` the first iteration counts when
+    its step was accepted."""
+    useful, prev = 0, initial_cost
+    for i, (cost, ok) in enumerate(zip(cost_history, accepted)):
+        if ok and (prev is None or prev - cost >= FUNCTION_TOLERANCE * abs(prev)):
+            useful = i + 1
+        prev = cost
+    return useful
 
 
 def _select(accept: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
@@ -253,6 +274,7 @@ def optimize_window_dogleg(cfg: WindowConfig, imu_params: ImuParams, intrinsics:
     rho-based radius update. `trust0` warm-starts the radius."""
     states = problem.states
     eqs = evaluate(cfg, imu_params, intrinsics, problem, states)
+    cost0 = eqs.cost
     radius = _trust0(trust0, cfg.init_radius, states.r_WS)
     zero_lam = torch.full((), 1e-10, dtype=states.r_WS.dtype, device=states.r_WS.device)
     mf = dense_dim_mask(cfg, problem.state_mask, problem.sb_mask).to(states.r_WS.dtype)
@@ -300,7 +322,7 @@ def optimize_window_dogleg(cfg: WindowConfig, imu_params: ImuParams, intrinsics:
         acc.append(accept)
     return states, SolveDiagnostics(
         cost_history=torch.stack(hist), accepted=torch.stack(acc), final_cost=eqs.cost,
-        final_lambda=radius, landmark_quality=_landmark_quality(eqs.H_ll))
+        final_lambda=radius, landmark_quality=_landmark_quality(eqs.H_ll), initial_cost=cost0)
 
 
 def optimize_window(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[torch.Tensor],
@@ -316,6 +338,7 @@ def optimize_window(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[t
         return optimize_window_dogleg(cfg, imu_params, intrinsics, problem, trust0)
     states = problem.states
     eqs = evaluate(cfg, imu_params, intrinsics, problem, states)
+    cost0 = eqs.cost
     lam = _trust0(trust0, cfg.init_lambda, states.r_WS)
     hist, acc = [], []
     for _ in range(cfg.max_iterations):
@@ -331,7 +354,7 @@ def optimize_window(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[t
         acc.append(accept)
     return states, SolveDiagnostics(
         cost_history=torch.stack(hist), accepted=torch.stack(acc), final_cost=eqs.cost,
-        final_lambda=lam, landmark_quality=_landmark_quality(eqs.H_ll))
+        final_lambda=lam, landmark_quality=_landmark_quality(eqs.H_ll), initial_cost=cost0)
 
 
 def optimize_windows_batched(cfg: WindowConfig, imu_params: ImuParams, intrinsics: List[torch.Tensor],
