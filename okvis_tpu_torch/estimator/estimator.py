@@ -62,7 +62,7 @@ import torch
 from .. import kinematics as kin
 from ..cameras.ncamera import NCameraSystem
 from ..device import resolve_device
-from ..imu.preintegration import ImuParams, init_pose_from_imu, preintegrate, propagate
+from ..imu.preintegration import ImuParams, PreintegrationGraph, init_pose_from_imu, preintegrate, propagate
 from ..kinematics.se3 import SE3
 from ..solver import (
     BaProblem,
@@ -543,9 +543,13 @@ class Estimator:
 
     @property
     def _preintegrate_fn(self):
-        """preintegrate, batched over the links by itself (no vmap)."""
+        """Full-mode preintegrate, batched over the links by itself (no
+        vmap): on the card a PreintegrationGraph, the counterpart of the JAX
+        package's jitted program (one graph per device, dtype and shape); on
+        the CPU the eager call."""
         if "pre" not in self._jit_cache:
-            self._jit_cache["pre"] = preintegrate
+            self._jit_cache["pre"] = (PreintegrationGraph(self.imu_params) if self.device.type == "cuda" else
+                                      functools.partial(preintegrate, self.imu_params))
         return self._jit_cache["pre"]
 
     @property
@@ -1047,20 +1051,23 @@ class Estimator:
         rebased to its start time. sb_source is the (S, 9) table the
         linearization biases come from (current estimates for optimize, FEJ
         for marginalization)."""
-        K, P = self.cfg.max_imu_links, self.cfg.imu_samples
         with Timer("preintegrate"):
-            ts = np.zeros((K, P))
-            gy = np.zeros((K, P, 3))
-            ac = np.zeros((K, P, 3))
-            t1 = np.zeros(K)
-            sbr = np.zeros((K, 9))
-            for i, l in enumerate(links):
-                ts[i], gy[i], ac[i] = l.ts - l.t0, l.gyro, l.acc
-                t1[i] = l.t1 - l.t0
-                sbr[i] = sb_source[self.states[l.id_a].slot]
-            return self._preintegrate_fn(
-                self.imu_params, self._t(ts), self._t(gy), self._t(ac), self._t(np.zeros(K)), self._t(t1),
-                self._t(sbr))
+            return self._preintegrate_fn(*(self._t(x) for x in self._link_tables(links, sb_source)))
+
+    def _link_tables(self, links, sb_source: np.ndarray) -> tuple:
+        """preintegrate's padded host arguments for `links` (timestamps,
+        gyro, acc, t0, t1, sb_ref), each link rebased to its start time."""
+        K, P = self.cfg.max_imu_links, self.cfg.imu_samples
+        ts = np.zeros((K, P))
+        gy = np.zeros((K, P, 3))
+        ac = np.zeros((K, P, 3))
+        t1 = np.zeros(K)
+        sbr = np.zeros((K, 9))
+        for i, l in enumerate(links):
+            ts[i], gy[i], ac[i] = l.ts - l.t0, l.gyro, l.acc
+            t1[i] = l.t1 - l.t0
+            sbr[i] = sb_source[self.states[l.id_a].slot]
+        return ts, gy, ac, np.zeros(K), t1, sbr
 
     def _empty_pre_template(self):
         if "pre_tmpl" not in self._jit_cache:

@@ -14,7 +14,8 @@ dimensions, so a window's K links preintegrate in one call.
   inclusive quaternion prefix product by log-depth doubling (PyTorch has no
   ``associative_scan``), the acceleration integrals are cumulative sums.
 - No operation reads a device value back to the host, so a caller on the
-  card can run it under ``torch.cuda.set_sync_debug_mode("error")``.
+  card can run it under ``torch.cuda.set_sync_debug_mode("error")``, and
+  ``PreintegrationGraph`` records full mode as one CUDA graph.
 
 Boundary intervals are clipped to [t0, t1] with linearly interpolated
 measurements; padded intervals (dt <= 0) change nothing; saturated gyro or
@@ -35,6 +36,7 @@ from ..device import resolve_device
 from ..kinematics import so3
 from ..kinematics.se3 import SE3
 from ..linalg import cholesky
+from ..utils.timing import Timer
 
 
 class ImuParams(NamedTuple):
@@ -303,6 +305,55 @@ def preintegrate(
         delta_t=c["delta_t"],
         sb_ref=sb_ref,
     )
+
+
+class PreintegrationGraph:
+    """Full-mode ``preintegrate`` recorded once as a CUDA graph per (device,
+    dtype, batch shape) of its inputs and replayed on every call: the
+    counterpart of the JAX package's jitted preintegration.
+
+    Eagerly, each of the P-1 intervals is ~355 small launches, each waiting
+    on the host; a replay is one graph launch of the same kernels in the
+    same order, so its fields equal the eager call's bit for bit. A shape's
+    first call warms up twice on the capture stream (cuBLAS and cuSOLVER
+    handles and workspaces exist before capture), then records; the
+    caller's other threads may keep launching meanwhile (thread-local
+    capture mode). Every call copies its inputs, tensors on the card, into
+    the graph's static buffers and returns clones of the static outputs, so
+    one call's fields survive the next replay. The Timers
+    ``preintegrate.capture`` and ``preintegrate.replay`` count both."""
+
+    def __init__(self, params: ImuParams):
+        self.params = params
+        # (device, dtype, gyro's leading shape) -> (graph, static inputs, static outputs)
+        self.graphs = {}
+
+    def __call__(self, timestamps, gyro, acc, t0, t1, sb_ref) -> PreintegratedImu:
+        args = (timestamps, gyro, acc, t0, t1, sb_ref)
+        key = (gyro.device, gyro.dtype, tuple(gyro.shape[:-1]))
+        if key not in self.graphs:
+            with Timer("preintegrate.capture"):
+                self.graphs[key] = self._capture(args)
+        graph, inputs, out = self.graphs[key]
+        with Timer("preintegrate.replay"):
+            for buf, x in zip(inputs, args):
+                buf.copy_(x)
+            graph.replay()
+        return PreintegratedImu(*(x.clone() for x in out))
+
+    def _capture(self, args) -> tuple:
+        device = args[0].device
+        inputs = tuple(x.clone() for x in args)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                preintegrate(self.params, *inputs)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = tuple(preintegrate(self.params, *inputs))
+        torch.cuda.current_stream(device).wait_stream(side)
+        return graph, inputs, out
 
 
 def propagate(

@@ -582,3 +582,44 @@ def test_euroc_app_runs_on_the_card(cuda, tmp_path):
     assert harris_suppressed_cuda.launches - h0 == 6 and hamming_matrix_cuda.launches > m0
     assert out["ate_rmse_m"] is not None and out["ate_rmse_m"] < 0.2
     assert out["posegraph_keyframes"] >= 2 and (tmp_path / "t.tum.loop").exists()
+
+
+def test_preintegration_graph_replays_the_eager_loop_bitwise(cuda):
+    """The Estimator's preintegration on the card at the benchmark's window
+    (K = 8, P = 32, float32) replays one CUDA graph: optimize's call (every
+    link, current biases) and marginalization's (the oldest links, FEJ
+    biases) equal the eager preintegrate field for field, bit for bit; the
+    first call's fields survive the second replay; one capture per (device,
+    dtype, K, P) over several calls, and another K captures its own graph."""
+    from okvis_tpu_torch.imu.preintegration import PreintegrationGraph, preintegrate
+    from test_torch_preintegrate_links import estimator_with_links, timer_count
+
+    est = estimator_with_links(cuda, torch.float32)
+    assert (est.cfg.max_imu_links, est.cfg.imu_samples, len(est.imu_links)) == (8, 32, 8)
+    cases = [(est.imu_links, est.sb), (est.imu_links[:2], est.fej_sb)]
+    captures, replays = timer_count("preintegrate.capture"), timer_count("preintegrate.replay")
+    first = est._preintegrate_links(*cases[0])
+    kept = [x.clone() for x in first]
+    second = est._preintegrate_links(*cases[1])
+    for name, a, b in zip(first._fields, first, kept):
+        assert torch.equal(a, b), name
+    for (links, sb), got in zip(cases, (first, second)):
+        want = preintegrate(est.imu_params, *(est._t(x) for x in est._link_tables(links, sb)))
+        for name, a, b in zip(got._fields, got, want):
+            assert a.device.type == "cuda" and torch.equal(a, b), name
+    for _ in range(3):
+        est._preintegrate_links(*cases[0])
+    assert timer_count("preintegrate.capture") - captures == 1
+    assert timer_count("preintegrate.replay") - replays == 5
+
+    est.cfg = dataclasses.replace(est.cfg, max_imu_links=4)
+    links, sb = est.imu_links[:4], est.sb
+    got = est._preintegrate_links(links, sb)
+    want = preintegrate(est.imu_params, *(est._t(x) for x in est._link_tables(links, sb)))
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+    graphed = est._jit_cache["pre"]
+    assert isinstance(graphed, PreintegrationGraph)
+    assert sorted((d.type, dtype, shape) for d, dtype, shape in graphed.graphs) == \
+        [("cuda", torch.float32, (4, 32)), ("cuda", torch.float32, (8, 32))]
+    assert timer_count("preintegrate.capture") - captures == 2
