@@ -18,6 +18,21 @@ the limit that `limits/<cell>.json` sets for it.
 - `rot_err_deg`: the published trajectory's RMS orientation error against
   the truth after aligning the yaw about gravity, the one rotation that
   visual-inertial odometry cannot observe.
+
+Where the configuration runs the pose-graph layer, five more:
+
+- `posegraph_scores_differ`: over the sampled keyframe retrievals, the
+  database score entries, and the best slots, that differ from the
+  reference's XOR, popcount and votes over the same query and database
+  (exact: a score is a ratio of two counts, rounded once to float32);
+- `loop_edge_err_m`, `loop_edge_err_deg`: the RMS position and rotation
+  error of every loop edge accepted in the window against the true
+  relative pose T_WS_cand^-1 T_WS_query at the two keyframes' stamps
+  (None, so not correct, where the window accepted no loop);
+- `posegraph_solve_err_m`, `posegraph_solve_err_rad`: over the sampled
+  solves, the largest position and rotation difference between the poses
+  the program wrote back and the reference's float64 Levenberg-Marquardt
+  solve from the same graph.
 """
 
 from __future__ import annotations
@@ -26,7 +41,7 @@ import numpy as np
 import torch
 
 from . import world
-from .reference import detect, geometry, hamming
+from .reference import detect, geometry, hamming, posegraph
 
 MATCH_PX = 1e-3
 
@@ -97,10 +112,67 @@ def trajectory_numbers(outputs, stream: world.Stream) -> tuple:
     return geometry.ate(r, true_r), geometry.orientation_error_deg(geometry.quat_to_rot(q), true_R)
 
 
+def scores_number(retrievals: list) -> int:
+    """Score entries and best slots of the sampled retrievals that differ
+    from the reference's."""
+    differ = 0
+    for r in retrievals:
+        ref, best = posegraph.scores(r["desc_q"], r["mask_q"], r["db_desc"], r["db_mask"], r["slots"], r["allowed"],
+                                     len(r["allowed"]), r["vote_threshold"])
+        differ += int((ref != r["scores"]).sum()) + int(best != r["best"])
+    return differ
+
+
+def loop_edge_numbers(edges: list, stream: world.Stream) -> tuple:
+    """(RMS position error m, RMS rotation error deg) of loop edges
+    (stamp_cand, stamp_query, r, q) against the truth, or Nones for none."""
+    if not edges:
+        return None, None
+    t_c, t_q, r, q = (np.asarray(x) for x in zip(*edges))
+    pc, Rc, _ = stream.truth(t_c)
+    pq, Rq, _ = stream.truth(t_q)
+    true_r = np.einsum("nji,nj->ni", Rc, pq - pc)  # R_c^T (p_q - p_c)
+    true_R = np.swapaxes(Rc, -1, -2) @ Rq
+    err_r = np.linalg.norm(r - true_r, axis=-1)
+    err_a = geometry.rotation_angle(np.swapaxes(geometry.quat_to_rot(q), -1, -2) @ true_R)
+    return float(np.sqrt((err_r ** 2).mean())), float(np.degrees(np.sqrt((err_a ** 2).mean())))
+
+
+def reference_solve(item: dict, dtype=torch.float64) -> tuple:
+    """The reference's poses (r, q) for a sampled solve: from the graph as
+    the program's call found it, with the call's iteration count."""
+    return posegraph.solve(**item["before"], max_iterations=item["kwargs"].get("max_iterations", 10), dtype=dtype)
+
+
+def solve_numbers(solves: list) -> tuple:
+    """(largest position difference m, largest rotation difference rad)
+    between the sampled solves' poses and the reference's from the same
+    graph, over the occupied nodes; Nones for no solve."""
+    if not solves:
+        return None, None
+    worst_m = worst_rad = 0.0
+    for item in solves:
+        r, q = reference_solve(item)
+        occ = item["before"]["node_mask"]
+        dm, drad = posegraph.pose_differences(item["node_r"][occ], item["node_q"][occ], r[occ], q[occ])
+        worst_m, worst_rad = max(worst_m, dm), max(worst_rad, drad)
+    return worst_m, worst_rad
+
+
+def posegraph_values(pg: dict, stream: world.Stream) -> dict:
+    edge_m, edge_deg = loop_edge_numbers(pg["loop_edges"], stream)
+    solve_m, solve_rad = solve_numbers(pg["solves"])
+    return dict(posegraph_scores_differ=scores_number(pg["retrievals"]) if pg["retrievals"] else None,
+                loop_edge_err_m=edge_m, loop_edge_err_deg=edge_deg,
+                posegraph_solve_err_m=solve_m, posegraph_solve_err_rad=solve_rad)
+
+
 def compare(outputs, stream: world.Stream, config: dict, limits: dict) -> dict:
     kp, bits = detection_numbers(outputs.detections, stream, config)
     ate, rot = trajectory_numbers(outputs, stream)
     values = dict(keypoints_unmatched=kp, descriptor_bits_differ=bits,
                   hamming_entries_differ=hamming_number(outputs.hamming) if outputs.hamming else None,
                   ate_m=ate, rot_err_deg=rot)
+    if outputs.posegraph is not None:
+        values.update(posegraph_values(outputs.posegraph, stream))
     return {k: {"value": v, "limit": limits[k]} for k, v in values.items()}

@@ -10,9 +10,12 @@ The control is the reference put in the program's place one precision
 below the configuration's float32: its Harris arithmetic (no matmul) in
 bfloat16, its descriptors' blur matmuls in TF32 on the card, judged against
 the reference's full float32 keypoints and descriptors by the same
-comparison. The faults
-break the timed path underneath the benchmark's taps (see FAULTS). Prints
-one JSON line a run.
+comparison. Where the pose-graph layer runs (in float64), its control is
+the reference's solve in float32 put in the program's place: planted like
+a fault (`posegraph_solve_float32` in POSEGRAPH_FAULTS), so that the run's
+own `correct` judges it. The faults break the timed path underneath the
+benchmark's taps (see FAULTS, and POSEGRAPH_FAULTS for a configuration
+with the pose-graph layer on). Prints one JSON line a run.
 """
 
 from __future__ import annotations
@@ -22,10 +25,11 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from . import check, harness
-from .reference import detect
+from .reference import detect, posegraph
 
 MAX_DIST = 10_000
 
@@ -121,12 +125,91 @@ FAULTS = {"optimize_unchanged": _optimize_unchanged, "hamming_half_batch": _hamm
           "descriptor_altered": _descriptor_altered, "pose_frozen": _pose_frozen}
 
 
+def _retrieval_vote_shifted(vio, restore: list):
+    """Keyframe retrieval that counts a vote below a threshold 8 higher
+    than the one it is given."""
+    from okvis_tpu_torch.posegraph import place_recognition as pr
+
+    def make(orig):
+        def broken(desc_q, mask_q, db_desc, db_mask, allowed, vote_threshold=60):
+            return orig(desc_q, mask_q, db_desc, db_mask, allowed, vote_threshold=vote_threshold + 8)
+        return broken
+
+    _patch_module(restore, pr, "score_against_database", make)
+
+
+def _loop_edge_altered(restore: list, alter):
+    """Every verified loop's relative pose (r, q) replaced by alter(r, q)
+    where the verification produces it."""
+    from okvis_tpu_torch.posegraph import loop_closure as lc
+
+    def make(orig):
+        def broken(*a, **k):
+            rel = orig(*a, **k)
+            return None if rel is None else alter(*rel)
+        return broken
+
+    _patch_module(restore, lc, "relative_pose_from_verification", make)
+
+
+def _loop_edge_perturbed(vio, restore: list):
+    """Every verified loop's relative pose 0.2 m off along the candidate's x."""
+    _loop_edge_altered(restore, lambda r, q: (r + np.array([0.2, 0.0, 0.0]), q))
+
+
+def _loop_edge_turned(vio, restore: list):
+    """Every verified loop's relative orientation turned by 2 degrees about
+    the candidate's z."""
+    from okvis_tpu_torch.kinematics import np_se3
+
+    half = np.radians(2.0) / 2.0
+    turn = np.array([0.0, 0.0, np.sin(half), np.cos(half)])
+    _loop_edge_altered(restore, lambda r, q: (r, np_se3.quat_multiply(turn, q)))
+
+
+def _posegraph_solve_skipped(vio, restore: list):
+    """A pose-graph solve whose poses are never written back to the graph."""
+    from okvis_tpu_torch.posegraph import graph as pg
+    from okvis_tpu_torch.posegraph import optimize as pgo
+
+    def make(orig):
+        def skipped(self, max_iterations=10, pcg_iters=50, dtype=None, solver="auto"):
+            return pgo.optimize_pose_graph(self.to_arrays(dtype), max_iterations=max_iterations,
+                                           pcg_iters=pcg_iters, solver=solver)
+        return skipped
+
+    _patch_module(restore, pg.PoseGraph, "optimize", make)
+
+
+def _posegraph_solve_float32(vio, restore: list):
+    """The pose graph's control: the reference's solve, in float32, in place
+    of the program's, its poses written back to the graph as the program's
+    are."""
+    from okvis_tpu_torch.posegraph import graph as pg
+
+    def make(orig):
+        def low(self, max_iterations=10, pcg_iters=50, dtype=None, solver="auto"):
+            r, q = posegraph.solve(**{name: getattr(self, name) for name in harness.GRAPH_ARRAYS},
+                                   max_iterations=max_iterations, dtype=torch.float32)
+            occ = self.node_mask
+            self.node_r[occ], self.node_q[occ] = r[occ], q[occ]
+        return low
+
+    _patch_module(restore, pg.PoseGraph, "optimize", make)
+
+
+POSEGRAPH_FAULTS = {"retrieval_vote_shifted": _retrieval_vote_shifted, "loop_edge_perturbed": _loop_edge_perturbed,
+                    "loop_edge_turned": _loop_edge_turned, "posegraph_solve_skipped": _posegraph_solve_skipped,
+                    "posegraph_solve_float32": _posegraph_solve_float32}
+
+
 def run_fault(workload: str, fault: str, seed: int, seconds: float, device="cuda", warmup_frames=None) -> dict:
     """A run with `fault` planted; module patches are put back after."""
     restore = []
+    plant = {**FAULTS, **POSEGRAPH_FAULTS}[fault]
     try:
         result, _ = harness.run(workload, seed, seconds, False, time.perf_counter(), device=device,
-                                warmup_frames=warmup_frames, prepare=lambda vio: FAULTS[fault](vio, restore))
+                                warmup_frames=warmup_frames, prepare=lambda vio: plant(vio, restore))
     finally:
         for module, name, orig in restore:
             setattr(module, name, orig)

@@ -38,7 +38,10 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 IMU_LEAD_NS = 25_000_000  # IMU fed past a frame's stamp before its images (the frame waits for +20 ms)
 STRETCH_FRAMES = 3  # profiled frames after the window of a traced run
-SAMPLES = 6  # frames and Hamming calls of the window kept for the reference
+SAMPLES = 6  # frames, Hamming calls, retrievals and solves of the window kept for the reference
+# the pose graph's host arrays a solve reads (okvis_tpu_torch.posegraph.graph.PoseGraph)
+GRAPH_ARRAYS = ("node_r", "node_q", "node_mask", "fixed", "edge_i", "edge_j", "meas_r", "meas_q", "sqrt_info",
+                "edge_mask")
 
 
 def load_json(path: Path) -> dict:
@@ -106,8 +109,23 @@ def vio_parameters(config: dict):
     det = config["detection_options"]
     o.detection_threshold, o.detection_octaves, o.max_num_keypoints = (
         det["threshold"], det["octaves"], det["maxNoKeypoints"])
-    p.posegraph.enabled = bool(config["posegraph"])
+    p.posegraph = posegraph_parameters(config["posegraph"])
     return p
+
+
+def posegraph_parameters(value):
+    """okvis_tpu_torch's PoseGraphConfigParams for a configuration's
+    "posegraph": false (the layer off), or an object of the dataclass's
+    fields (an unknown key is an error)."""
+    from okvis_tpu_torch.config.parameters import PoseGraphConfigParams
+
+    if isinstance(value, bool):
+        return PoseGraphConfigParams(enabled=value)
+    fields = {f.name for f in dataclasses.fields(PoseGraphConfigParams)}
+    unknown = sorted(set(value) - fields)
+    if unknown:
+        raise ValueError(f"unknown pose-graph settings {unknown}; known: {sorted(fields)}")
+    return PoseGraphConfigParams(**value)
 
 
 class Reservoir:
@@ -117,14 +135,25 @@ class Reservoir:
         self.k, self.n, self.items = k, 0, []
         self._rng = random.Random(seed)
 
-    def offer(self, item) -> None:
+    def admit(self) -> Optional[int]:
+        """Counts one item of the stream: the place its copy goes to, or
+        None where the sample does not keep it (nothing need be copied)."""
         self.n += 1
-        if len(self.items) < self.k:
+        if self.n <= self.k:
+            return self.n - 1
+        j = self._rng.randrange(self.n)
+        return j if j < self.k else None
+
+    def put(self, j: int, item) -> None:
+        if j == len(self.items):
             self.items.append(item)
         else:
-            j = self._rng.randrange(self.n)
-            if j < self.k:
-                self.items[j] = item
+            self.items[j] = item
+
+    def offer(self, item) -> None:
+        j = self.admit()
+        if j is not None:
+            self.put(j, item)
 
 
 class Taps:
@@ -132,7 +161,10 @@ class Taps:
     keep references to a sample of the window's detections and Hamming
     matrices, count the hand kernels' launch shapes in a traced run, and
     record host spans around each layer's call while the stretch is
-    profiled. Module-level wrappers are put back by `close`."""
+    profiled. Where the pipeline runs the pose-graph layer, they also keep
+    host copies of a sample of its retrievals and solves, and count the
+    database Hamming's launch shapes. Module-level wrappers, and the
+    pose-graph layer's, are put back by `close`."""
 
     def __init__(self, vio, seed: int, count_shapes: bool):
         from okvis_tpu_torch.frontend import detection, kernels as fkernels
@@ -183,6 +215,60 @@ class Taps:
 
             detection.harris_suppressed = harris_suppressed
             self._restore.append((detection, "harris_suppressed", hs))
+        if vio.posegraph is not None:
+            self._posegraph_taps(vio.posegraph, seed, count_shapes)
+
+    def _posegraph_taps(self, manager, seed: int, count_shapes: bool) -> None:
+        """Wrap the keyframe database's `query` and the graph's `optimize`:
+        for the items the reservoirs keep, host copies of what the
+        reference needs (the database's occupied slots, the graph's arrays
+        before the solve and the poses after it); the database Hamming's
+        launch shapes in a traced run. Host reads of host arrays only."""
+        from okvis_tpu_torch.posegraph import place_recognition
+
+        db, graph = manager.db, manager.graph
+        self.retrieval = Reservoir(SAMPLES, seed + 2)
+        self.solves = Reservoir(SAMPLES, seed + 3)
+        query, optimize = db.query, graph.optimize
+
+        def tapped_query(desc_q, mask_q, exclude_ids, vote_threshold=60):
+            out = query(desc_q, mask_q, exclude_ids, vote_threshold)
+            kf_id, _, scores = out
+            j = self.retrieval.admit() if self.active and kf_id is not None else None  # None: nothing scored
+            if j is not None:
+                slots = np.nonzero(db.occupied)[0]
+                allowed = db.occupied.copy()
+                allowed[[db.slot_of[i] for i in exclude_ids if i in db.slot_of]] = False
+                self.retrieval.put(j, dict(
+                    desc_q=np.array(desc_q[:db.kp_cap]), mask_q=np.array(mask_q[:db.kp_cap], bool),
+                    vote_threshold=vote_threshold, slots=slots, db_desc=db.desc[slots], db_mask=db.mask[slots],
+                    allowed=allowed, scores=np.array(scores), best=db.slot_of[kf_id]))
+            return out
+
+        def tapped_optimize(*a, **k):
+            j = self.solves.admit() if self.active else None
+            before = None if j is None else {name: getattr(graph, name).copy() for name in GRAPH_ARRAYS}
+            out = optimize(*a, **k)
+            if j is not None:
+                self.solves.put(j, dict(before=before, kwargs=dict(k), node_r=graph.node_r.copy(),
+                                        node_q=graph.node_q.copy()))
+            return out
+
+        for obj, name, fn in ((db, "query", tapped_query), (graph, "optimize", tapped_optimize)):
+            self._restore.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+        if count_shapes:
+            self.shapes["hamming_db"] = Counter()
+            mdm = place_recognition.masked_distance_matrix
+
+            def masked_distance_matrix(desc_a, desc_b, mask_a=None, mask_b=None):
+                if self.active:
+                    self.shapes["hamming_db"][tuple(None if t is None else tuple(t.shape)
+                                                    for t in (desc_a, desc_b, mask_a, mask_b))] += 1
+                return mdm(desc_a, desc_b, mask_a, mask_b)
+
+            place_recognition.masked_distance_matrix = masked_distance_matrix
+            self._restore.append((place_recognition, "masked_distance_matrix", mdm))
 
     def _span(self, name: str, fn: Callable) -> Callable:
         def wrapped(*a, **k):
@@ -241,11 +327,13 @@ def device_seconds(fn: Callable, reps: int = 21, inner: int = 10) -> float:
 def time_kernel_shapes(shapes: dict, stream: world.Stream, device) -> dict:
     """Each hand-kernel shape the window launched, timed alone with CUDA
     events: {kernel: [{shape, count, time_s, bound_s}]}. Harris runs on the
-    stream's images; Hamming on random descriptors with every row valid."""
+    stream's images; Hamming on random descriptors with every row valid,
+    the frontend's matrices under `hamming` and the pose graph's database
+    matrix under `hamming_db`."""
     from okvis_tpu_torch.ops.detection_cuda import harris_suppressed_cuda
     from okvis_tpu_torch.ops.hamming import masked_distance_matrix
 
-    out = {"harris_nms": [], "hamming": []}
+    out = {kernel: [] for kernel in shapes}
     for (c, h, w), count in sorted(shapes["harris_nms"].items()):
         img = torch.as_tensor(stream.images[0][:c], dtype=torch.float32, device=device).contiguous()
         ys, xs = torch.arange(h, device=device)[:, None], torch.arange(w, device=device)[None, :]
@@ -254,7 +342,8 @@ def time_kernel_shapes(shapes: dict, stream: world.Stream, device) -> dict:
         out["harris_nms"].append(dict(shape=[c, h, w], count=count, time_s=t, bound_s=kernels.harris_bound_s(c, h, w)))
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    for key, count in sorted(shapes["hamming"].items(), key=str):
+    for kernel, key, count in [(kernel, key, count) for kernel in ("hamming", "hamming_db")
+                               for key, count in sorted(shapes.get(kernel, {}).items(), key=str)]:
         sa, sb, ma, mb = key
         a = torch.randint(-2**31, 2**31 - 1, sa, generator=gen, dtype=torch.int32, device=device)
         b = torch.randint(-2**31, 2**31 - 1, sb, generator=gen, dtype=torch.int32, device=device)
@@ -264,8 +353,8 @@ def time_kernel_shapes(shapes: dict, stream: world.Stream, device) -> dict:
         g, na, nb = (res.shape if res.dim() == 3 else (1, *res.shape))
         in_bytes = sum(x.numel() * x.element_size() for x in (a, b, m_a, m_b) if x is not None)
         t = device_seconds(lambda: masked_distance_matrix(a, b, m_a, m_b))
-        out["hamming"].append(dict(shape=[g, na, nb], count=count, time_s=t,
-                                   bound_s=kernels.hamming_bound_s(g, na, nb, in_bytes)))
+        out[kernel].append(dict(shape=[g, na, nb], count=count, time_s=t,
+                                bound_s=kernels.hamming_bound_s(g, na, nb, in_bytes)))
     return out
 
 
@@ -276,9 +365,22 @@ class Outputs:
     detections: list  # [(frame n, q_WS of the predicted pose or None, [(uv (K, 2), mask (K,), desc (K, 16))])]
     hamming: list  # [(desc_a, desc_b, mask_a, mask_b, out)] numpy
     trajectory: tuple  # (stamps ns (N,), positions (N, 3), quaternions xyzw (N, 4)) of every published state
+    posegraph: Optional[dict] = None  # where the pipeline runs the pose-graph layer: see posegraph_outputs
 
 
-def collect_outputs(vio, taps: Taps, frame_of: dict) -> Outputs:
+def posegraph_outputs(manager, taps: Taps, e0: int) -> dict:
+    """The window's pose-graph outputs, `e0` being the graph's edge count
+    when it opened: the sampled retrievals and solves (Taps), and every loop
+    edge accepted in the window as (candidate's stamp, query's stamp,
+    measured T_cand_query as r (3,) and q xyzw (4,))."""
+    g = manager.graph
+    edges = [(manager.timestamps[g.id_of[int(g.edge_i[e])]], manager.timestamps[g.id_of[int(g.edge_j[e])]],
+              g.meas_r[e].copy(), g.meas_q[e].copy())
+             for e in range(e0, g.n_edges) if g.edge_mask[e] and g.edge_kind[e] == 1]
+    return dict(retrievals=list(taps.retrieval.items), solves=list(taps.solves.items), loop_edges=edges)
+
+
+def collect_outputs(vio, taps: Taps, frame_of: dict, e0: Optional[int] = None) -> Outputs:
     dets = []
     for images, T_WS, frames in taps.detections.items:
         q = None if T_WS is None else T_WS.q.detach().cpu().double().numpy()
@@ -290,7 +392,8 @@ def collect_outputs(vio, taps: Taps, frame_of: dict) -> Outputs:
     trajectory = (np.asarray([s.timestamp_ns for s in traj], np.int64),
                   np.stack([s.T_WS.r.numpy() for s in traj]) if traj else np.zeros((0, 3)),
                   np.stack([s.T_WS.q.numpy() for s in traj]) if traj else np.zeros((0, 4)))
-    return Outputs(detections=dets, hamming=ham, trajectory=trajectory)
+    pg = None if vio.posegraph is None else posegraph_outputs(vio.posegraph, taps, e0)
+    return Outputs(detections=dets, hamming=ham, trajectory=trajectory, posegraph=pg)
 
 
 def run(workload: str, seed: int, seconds: float, traced: bool, t_process: float, device="cuda",
@@ -331,6 +434,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_process: float
         # the window
         Timing.reset()
         syncs0 = syncstats.snapshot()
+        e0 = None if vio.posegraph is None else vio.posegraph.graph.n_edges  # the window's first edge
         first = n
         taps.active = True
         t_w0 = time.perf_counter()
@@ -346,9 +450,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_process: float
         frames = n - first
         syncs1 = syncstats.snapshot()
         stages = {k: acc.total for k, acc in Timing._timers.items()}
+        stages_n = {k: acc.count for k, acc in Timing._timers.items()}
         memory_peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
         published = sum(1 for s in vio.trajectory if s.timestamp_ns >= stream.frame_ns(first))
-        outputs = collect_outputs(vio, taps, frame_of)
+        outputs = collect_outputs(vio, taps, frame_of, e0)
 
         e2e = {"frames_per_s": frames / window_s, "frame_ms.p90": 1e3 * float(np.percentile(latency, 90)),
                "setup_s": t_w0 - t_process}
@@ -359,7 +464,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_process: float
 
         record = None
         if traced:
-            record = dict(frames=frames, stages_s=stages,
+            record = dict(frames=frames, stages_s=stages, stages_n=stages_n,
                           syncs={k: syncs1.get(k, 0) - syncs0.get(k, 0) for k in syncs1})
             if on_card:
                 record["trace"], n = profile_stretch(vio, taps, stream, n, imu_i)

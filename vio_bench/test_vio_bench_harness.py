@@ -32,8 +32,12 @@ def test_every_file_is_found_by_name():
     for w in b["workloads"]:
         assert harness.config_file(w["config"]).is_file()
         assert harness.traffic_file(w["traffic"]).is_file()
+        # the five numbers of every cell, and the pose graph's five where the configuration runs the layer
+        posegraph = harness.posegraph_parameters(harness.load_json(harness.config_file(w["config"]))["posegraph"])
         assert set(harness.load_json(harness.limits_file(w["name"]))) == {
-            "keypoints_unmatched", "descriptor_bits_differ", "hamming_entries_differ", "ate_m", "rot_err_deg"}
+            "keypoints_unmatched", "descriptor_bits_differ", "hamming_entries_differ", "ate_m", "rot_err_deg"} | (
+            {"posegraph_scores_differ", "loop_edge_err_m", "loop_edge_err_deg", "posegraph_solve_err_m",
+             "posegraph_solve_err_rad"} if posegraph.enabled else set())
     for m in b["per_layer"]:
         read = harness.metric_reader(m["name"])
         assert read({}) is None  # nothing to read: nothing reported
@@ -137,7 +141,8 @@ def _loaded_after(code: str) -> set:
 
 def test_nothing_loads_jax_and_the_reference_loads_no_port():
     ref = _loaded_after("import vio_bench.reference.detect, vio_bench.reference.hamming, "
-                        "vio_bench.reference.geometry, vio_bench.check, vio_bench.world")
+                        "vio_bench.reference.geometry, vio_bench.reference.posegraph, vio_bench.check, "
+                        "vio_bench.world")
     assert not ref & {"jax", "jaxlib", "flax", "okvis_tpu", "okvis_tpu_torch"}
     run = _loaded_after("import time, torch\nfrom vio_bench import harness, run\ntorch.set_num_threads(2)\n"
                         "harness.run('euroc_stereo.lap', 3, 0.1, False, time.perf_counter(), device='cpu', "
