@@ -185,6 +185,10 @@ class ThreadedVio:
                 T_SC=(self.rig.T_SC.r[0].cpu().numpy().astype(np.float64),
                       self.rig.T_SC.q[0].cpu().numpy().astype(np.float64)),
                 device=self.device)
+            if self.device.type == "cuda":
+                # what the card builds at the first verification and solve
+                # is built here, before the first frame
+                self.posegraph.warm_up()
         # called with each accepted LoopEvent
         self.loop_closure_callback: Optional[Callable] = None
 
@@ -237,8 +241,9 @@ class ThreadedVio:
         self._position_measurements: List[tuple] = []  # buffered, unused (ref parity)
         self._csv_writers: Dict[object, object] = {}
 
-        # quiescence counters for wait_idle, written by several threads
-        self._count_lock = threading.Lock()
+        # quiescence counters for wait_idle, written by several threads;
+        # every change is signalled on `_counted`, which wait_idle sleeps on
+        self._counted = threading.Condition()
         self._images_fed = 0
         self._images_consumed = 0
         self._frames_enqueued = 0
@@ -253,8 +258,9 @@ class ThreadedVio:
         self._start_threads()
 
     def _count(self, name: str, n: int = 1) -> None:
-        with self._count_lock:
+        with self._counted:
             setattr(self, name, getattr(self, name) + n)
+            self._counted.notify_all()
 
     # ------------------------------------------------------------------
     # VioInterface inputs
@@ -448,9 +454,10 @@ class ThreadedVio:
             loop(*args)
         except Exception as e:  # the thread's boundary: recorded, re-raised by wait_idle / shutdown
             _log.exception("ThreadedVio: %s failed", loop.__name__)
-            with self._count_lock:
+            with self._counted:
                 if self._error is None:
                     self._error = e
+                self._counted.notify_all()
             self._stop()
 
     def _imu_consumer_loop(self) -> None:
@@ -623,34 +630,37 @@ class ThreadedVio:
         """Hand the new keyframe's camera 0 to the pose-graph layer: its
         descriptors (one device-to-host copy), unit bearings
         (back-projection) and the world positions of its initialized
-        landmarks."""
+        landmarks, under the Timer `posegraph.feed` (in a traced frame its
+        span carries the count of valid landmarks handed over)."""
         from ..frontend import kernels
 
-        f = mf.frames[0]
-        desc = f.descriptors.cpu().numpy().view(np.uint32)  # (K, 16)
-        mask = f.mask_np.copy()
-        uv = f.uv_np
-        K = desc.shape[0]
-        rays = kernels.back_project_batch(
-            self.rig.specs[0], self.rig.intrinsics[0], torch.as_tensor(uv, device=self.device)).cpu().numpy()
-        bearings = rays / np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)
+        with Timer("posegraph.feed"):
+            f = mf.frames[0]
+            desc = f.descriptors.cpu().numpy().view(np.uint32)  # (K, 16)
+            mask = f.mask_np.copy()
+            uv = f.uv_np
+            K = desc.shape[0]
+            rays = kernels.back_project_batch(
+                self.rig.specs[0], self.rig.intrinsics[0], torch.as_tensor(uv, device=self.device)).cpu().numpy()
+            bearings = rays / np.maximum(np.linalg.norm(rays, axis=1, keepdims=True), 1e-12)
 
-        lms_W = np.zeros((K, 3))
-        lm_valid = np.zeros(K, bool)
-        for k in range(K):
-            lm_id = int(f.landmark_ids[k])
-            if lm_id == 0 or not mask[k]:
-                continue
-            rec = est.landmarks.get(lm_id)
-            if rec is None or not rec.initialized:
-                continue
-            hp = est.get_landmark(lm_id)
-            if abs(hp[3]) < 1e-8:
-                continue
-            lms_W[k] = hp[:3] / hp[3]
-            lm_valid[k] = True
+            lms_W = np.zeros((K, 3))
+            lm_valid = np.zeros(K, bool)
+            for k in range(K):
+                lm_id = int(f.landmark_ids[k])
+                if lm_id == 0 or not mask[k]:
+                    continue
+                rec = est.landmarks.get(lm_id)
+                if rec is None or not rec.initialized:
+                    continue
+                hp = est.get_landmark(lm_id)
+                if abs(hp[3]) < 1e-8:
+                    continue
+                lms_W[k] = hp[:3] / hp[3]
+                lm_valid[k] = True
 
-        T = est.get_T_WS(sid)
+            T = est.get_T_WS(sid)
+            timing.annotate("posegraph.feed", valid_landmarks=int(lm_valid.sum()))
         event = self.posegraph.add_keyframe(
             kf_id=mf.id, timestamp_ns=ts_ns, r_WS_vio=T.r.numpy(), q_WS_vio=T.q.numpy(), descriptors=desc,
             desc_mask=mask, bearings_C=bearings, landmarks_W=lms_W, lm_valid=lm_valid)
@@ -831,18 +841,22 @@ class ThreadedVio:
         """Block until every fed measurement has fully traversed the pipeline
         (consumed, synchronized, matched, optimized). Raises the first error
         of a worker thread (as the cause of a RuntimeError), and
-        TimeoutError when the pipeline is not idle after `timeout` s."""
+        TimeoutError when the pipeline is not idle after `timeout` s.
+
+        The caller sleeps on the counters' condition, woken by each count
+        and by a stage's error: it does not ask for the interpreter lock
+        while the stages work."""
         deadline = time.monotonic() + timeout
-        while True:
-            self._raise_worker_error()
-            with self._count_lock:
-                counted = (self._images_consumed >= self._images_fed
-                           and self._frames_processed >= self._frames_enqueued)
-            if counted and all(len(q) == 0 for q in self.camera_queues) and len(self.keypoint_queue) == 0:
-                return
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"ThreadedVio: not idle after {timeout} s")
-            time.sleep(0.002)
+        with self._counted:
+            while True:
+                self._raise_worker_error()
+                if (self._images_consumed >= self._images_fed and self._frames_processed >= self._frames_enqueued
+                        and all(len(q) == 0 for q in self.camera_queues) and len(self.keypoint_queue) == 0):
+                    return
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(f"ThreadedVio: not idle after {timeout} s")
+                self._counted.wait(min(left, 0.1))
 
     def _stop(self) -> None:
         """Wake every blocked stage and feeder; the stages end."""

@@ -22,6 +22,12 @@ JAX package splits one key a verification), so tests can replay the JAX
 package's draws. The manager reads the device at three points, as the JAX
 package does: the query's best slot and scores, the verification's inlier
 count and flag, and the solved poses (syncstats `posegraph_*`).
+
+Timers (utils.timing; each a Timing row and, in a traced frame, a span):
+`posegraph.query` (the retrieval), `posegraph.verify` (padding, RANSAC and
+its fetch), `posegraph.solve` (the solve and the correction) and
+`posegraph.insert` (the database insert and its upload). Their counts are
+the layer's counters: queries, verifications and accepted loops.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import torch
 
 from ..device import resolve_device
 from ..kinematics import np_se3
-from ..utils import syncstats
+from ..utils import syncstats, timing
+from ..utils.timing import Timer
 from . import loop_closure as lc
 from .graph import PoseGraph
 from .place_recognition import KeyframeDatabase, as_words
@@ -105,6 +112,33 @@ class PoseGraphManager:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.cfg.seed)
 
+    def warm_up(self) -> None:
+        """One verification and one solve at the layer's shapes, on scratch
+        data, so that what the device builds at first use (the float64
+        P3P's complex kernels, the solver's library handles) is built now
+        and not inside the first loop closure. Leaves the manager's state
+        as it was: the database, the graph, the events and the RANSAC
+        generator."""
+        cfg, dev, kp = self.cfg, self.device, self.db.kp_cap
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        desc = torch.randint(-2**31, 2**31 - 1, (kp, 16), generator=gen, dtype=torch.int32, device=dev)
+        lms_W = torch.rand((kp, 3), generator=gen, dtype=torch.float64, device=dev) - 0.5
+        lms_W[:, 2] += 4.0  # in front of the camera at the origin
+        valid = torch.ones(kp, dtype=torch.bool, device=dev)
+        u = torch.rand((lc.N_HYP, 3), generator=gen, dtype=torch.float64, device=dev)
+        ver = lc.verify_loop_candidate(u, desc, valid, lms_W, desc, valid, lms_W / lms_W.norm(dim=1, keepdim=True),
+                                       focal=cfg.focal, match_threshold=cfg.match_threshold,
+                                       min_inliers=cfg.min_inliers)
+        ver.num_inliers.cpu()
+
+        graph = PoseGraph(cfg.node_capacity, cfg.edge_capacity, device=dev)
+        q = np.array([0.0, 0.0, 0.0, 1.0])
+        graph.add_node(0, np.zeros(3), q, fixed=True)
+        graph.add_node(1, np.array([1.0, 0.0, 0.0]), q)
+        graph.add_edge(0, 1, np.array([0.9, 0.0, 0.0]), q, np.eye(6))
+        graph.optimize(max_iterations=cfg.max_iterations, pcg_iters=cfg.pcg_iters, solver=cfg.solver)
+
     def _draw(self, shape) -> torch.Tensor:
         """The next verification's RANSAC uniforms, [0, 1) float64 on the
         manager's device."""
@@ -152,7 +186,8 @@ class PoseGraphManager:
 
         # the retrieval database keeps geometry in the VIO world, so RANSAC
         # stays consistent with the stored landmark coordinates
-        self.db.insert(kf_id, descriptors, desc_mask, bearings_C, landmarks_W, lm_valid)
+        with Timer("posegraph.insert"):
+            self.db.insert(kf_id, descriptors, desc_mask, bearings_C, landmarks_W, lm_valid)
         self.insert_order.append(kf_id)
         self.prev_kf_id = kf_id
         self.prev_vio_pose = (r_vio.copy(), q_vio.copy())
@@ -163,30 +198,36 @@ class PoseGraphManager:
                                bearings_C: np.ndarray) -> Optional[LoopEvent]:
         cfg = self.cfg
         exclude = set(self.insert_order[-cfg.min_gap:])
-        cand_id, score, _ = self.db.query(desc, mask, exclude, vote_threshold=cfg.vote_threshold)
-        if cand_id is None or score < cfg.score_threshold:
+        with Timer("posegraph.query"):
+            cand_id, score, _ = self.db.query(desc, mask, exclude, vote_threshold=cfg.vote_threshold)
+            passed = cand_id is not None and score >= cfg.score_threshold
+            timing.annotate("posegraph.query", score=score, passed=passed)
+        if not passed:
             return None
 
-        desc_c, _, _, lms_W, lm_valid = self.db.geometry_of(cand_id)
-        # the query side padded to the database's keypoint capacity
-        kp_cap = self.db.kp_cap
-        kq = min(len(desc), bearings_C.shape[0], kp_cap)
-        dq = np.zeros((kp_cap, desc.shape[1]), desc.dtype)
-        mq = np.zeros(kp_cap, bool)
-        bq = np.zeros((kp_cap, 3), np.float64)
-        dq[:kq] = desc[:kq]
-        mq[:kq] = mask[:kq]
-        bq[:kq] = bearings_C[:kq]
+        with Timer("posegraph.verify"):
+            desc_c, _, _, lms_W, lm_valid = self.db.geometry_of(cand_id)
+            # the query side padded to the database's keypoint capacity
+            kp_cap = self.db.kp_cap
+            kq = min(len(desc), bearings_C.shape[0], kp_cap)
+            dq = np.zeros((kp_cap, desc.shape[1]), desc.dtype)
+            mq = np.zeros(kp_cap, bool)
+            bq = np.zeros((kp_cap, 3), np.float64)
+            dq[:kq] = desc[:kq]
+            mq[:kq] = mask[:kq]
+            bq[:kq] = bearings_C[:kq]
 
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        ver = lc.verify_loop_candidate(
-            self._draw((lc.N_HYP, 3)), t(as_words(desc_c)), t(lm_valid), t(np.asarray(lms_W, np.float64)),
-            t(as_words(dq)), t(mq), t(bq), focal=cfg.focal, match_threshold=cfg.match_threshold,
-            min_inliers=cfg.min_inliers)
-        with syncstats.sync("posegraph_verify"):
-            num_inliers, accepted = (int(x) for x in torch.stack([ver.num_inliers, ver.success.to(torch.int64)]).cpu())
+            ver = lc.verify_loop_candidate(
+                self._draw((lc.N_HYP, 3)), t(as_words(desc_c)), t(lm_valid), t(np.asarray(lms_W, np.float64)),
+                t(as_words(dq)), t(mq), t(bq), focal=cfg.focal, match_threshold=cfg.match_threshold,
+                min_inliers=cfg.min_inliers)
+            with syncstats.sync("posegraph_verify"):
+                num_inliers, accepted = (int(x) for x in torch.stack([ver.num_inliers,
+                                                                      ver.success.to(torch.int64)]).cpu())
+            timing.annotate("posegraph.verify", num_inliers=num_inliers, accepted=bool(accepted))
         event = LoopEvent(query_id=kf_id, candidate_id=cand_id, score=score, num_inliers=num_inliers,
                           accepted=bool(accepted))
         self.loop_events.append(event)
@@ -199,12 +240,16 @@ class PoseGraphManager:
         return event
 
     def _optimize_and_update_correction(self, latest_id: int) -> None:
-        with syncstats.sync("posegraph_solve"):
-            self.graph.optimize(max_iterations=self.cfg.max_iterations, pcg_iters=self.cfg.pcg_iters,
-                                solver=self.cfg.solver)
-        r_opt, q_opt = self.graph.get_pose(latest_id)
-        r_inv, q_inv = np_se3.inverse(*self.vio_pose_of[latest_id])
-        self.corr_r, self.corr_q = np_se3.compose(r_opt, q_opt, r_inv, q_inv)
+        with Timer("posegraph.solve"):
+            if timing.tracing():
+                g = self.graph
+                timing.annotate("posegraph.solve", nodes=g.n_nodes, edges=int(g.edge_mask[:g.n_edges].sum()))
+            with syncstats.sync("posegraph_solve"):
+                self.graph.optimize(max_iterations=self.cfg.max_iterations, pcg_iters=self.cfg.pcg_iters,
+                                    solver=self.cfg.solver)
+            r_opt, q_opt = self.graph.get_pose(latest_id)
+            r_inv, q_inv = np_se3.inverse(*self.vio_pose_of[latest_id])
+            self.corr_r, self.corr_q = np_se3.compose(r_opt, q_opt, r_inv, q_inv)
 
     # ------------------------------------------------------------- culling
     def cull_redundant(self) -> List[int]:

@@ -290,6 +290,30 @@ def test_wait_idle_times_out():
     assert len(vio.trajectory) == 1
 
 
+def test_wait_idle_sleeps_until_a_count_wakes_it():
+    """wait_idle sleeps on the counters' condition rather than polling,
+    which would ask for the interpreter lock every few ms while the stages
+    work: a frame held in flight for 0.3 s costs it a few waits, and the
+    count that ends the frame wakes it."""
+    vio = _vio()
+    vio._count("_frames_enqueued")  # a frame in flight
+    waits = []
+    wait = vio._counted.wait
+
+    def counted_wait(timeout=None):
+        waits.append(timeout)
+        return wait(timeout)
+
+    vio._counted.wait = counted_wait
+    done = threading.Timer(0.3, vio._count, args=("_frames_processed",))
+    t0 = time.monotonic()
+    done.start()
+    vio.wait_idle(timeout=30)
+    assert 0.25 <= time.monotonic() - t0 < 10
+    assert 1 <= len(waits) <= 10 and all(0 < w <= 0.1 for w in waits)
+    vio.shutdown()
+
+
 def test_quiescence_counters_lose_no_update_under_contention():
     """The counters wait_idle reads are written by the feeder, both frame
     consumers and the processing thread: more writers than cores, with the

@@ -416,11 +416,16 @@ def assert_same_manager(m, jm, what=""):
     assert m.insert_order == jm.insert_order and m.db.slot_of == jm.db.slot_of, what
 
 
-def square_loop(rng):
+def square_loop(rng, warm_up=False):
     """test_posegraph.py::TestManagerEndToEnd's run through both managers,
-    compared after every keyframe."""
+    compared after every keyframe; with `warm_up`, the port manager's
+    warm_up runs first."""
     m, jm = managers(min_gap=8, score_threshold=0.2, min_inliers=15, node_capacity=64, edge_capacity=128,
                      db_kp_capacity=64)
+    if warm_up:
+        state = m._gen.get_state()
+        m.warm_up()
+        assert torch.equal(m._gen.get_state(), state)
     kfs = square_loop_keyframes(rng, 60)
     for i, kf in enumerate(kfs):
         args = dict(kf_id=i, timestamp_ns=i * 10**8, r_WS_vio=kf["vio"][0], q_WS_vio=kf["vio"][1],
@@ -446,6 +451,16 @@ def test_manager_loop_closure_reduces_drift(rng):
     assert [t[:2] for t in traj] == [t[:2] for t in jtraj]
     for a, b in zip(traj, jtraj):
         np.testing.assert_allclose(np.concatenate(a[2:]), np.concatenate(b[2:]), rtol=0, atol=TOL)
+
+
+def test_warm_up_leaves_the_manager_as_it_was(rng):
+    """warm_up (a verification and a solve on scratch data, which
+    ThreadedVio runs on a CUDA card) draws nothing from the manager's RANSAC
+    generator and leaves its database, graph and events as they were: the
+    square loop after it still gives the JAX manager's every event, graph
+    and correction."""
+    m, _, _ = square_loop(rng, warm_up=True)
+    assert [e.accepted for e in m.loop_events].count(True) == 1 and m._draw.calls == len(m.loop_events)
 
 
 def test_manager_state_round_trips_through_convert(rng):

@@ -362,12 +362,26 @@ def test_attribute_to_frames_charges_within_each_stage():
 
 
 # ---------------------------------------------------------------- the benchmark's readers
-def _record(**extra):
+def _record(stages_n=None, kernels=None, **extra):
     """A traced run's record: 3 frames of 100 ms whose stages took 8 ms of
-    detection, 18 of matching, 90 of optimization, 60 of marginalization."""
+    detection, 18 of matching, 90 of optimization, 60 of marginalization;
+    each Timing row's count (`stages_n`) 3 unless given, and the timed
+    kernel shapes where given."""
     stages = {"1.x detectAndDescribe": 0.024, "2.1 addStates": 0.0, "2.4 matching": 0.018, "3.1 optimization": 0.09,
-              "3.2 marginalization": 0.06, "host: build problem": 0.03}
-    return {"frames": 3, "stages_s": {**stages, **extra}, "syncs": {"optimize_fetch": 3}}
+              "3.2 marginalization": 0.06, "host: build problem": 0.03, **extra}
+    record = {"frames": 3, "stages_s": stages, "stages_n": {**{k: 3 for k in stages}, **(stages_n or {})},
+              "syncs": {"optimize_fetch": 3}}
+    if kernels is not None:
+        record["kernels"] = kernels
+    return record
+
+
+# a window of 4 keyframes: 4 queries, 2 verifications, 1 loop closed
+POSEGRAPH_N = {"3.3 posegraph": 4, "posegraph.query": 4, "posegraph.verify": 2, "posegraph.solve": 1}
+POSEGRAPH_S = {"3.3 posegraph": 0.26, "posegraph.query": 0.02, "posegraph.verify": 0.009, "posegraph.solve": 0.03}
+# the database Hamming at one shape, 3 launches of 68 us against a 51 us bound
+HAMMING_DB = {"hamming_db": [dict(shape=[1, 400, 102400], count=3, time_s=68e-6, bound_s=51e-6)],
+              "hamming": [dict(shape=[1, 400, 400], count=9, time_s=4e-6, bound_s=1e-6)]}
 
 
 WANT = {
@@ -375,6 +389,12 @@ WANT = {
     "pipeline.wait_ms": (dict(frame=0.3), 36.0),
     "pipeline.sync_wait_ms": ({"sync.optimize_fetch": 0.0045, "sync.upload": 0.0015}, 2.0),
     "estimator.preintegrate_ms": (dict(preintegrate=0.0096), 3.2),
+    "posegraph.keyframe_ms": (dict(POSEGRAPH_S, stages_n=POSEGRAPH_N), 65.0),
+    "posegraph.query_ms": (dict(POSEGRAPH_S, stages_n=POSEGRAPH_N), 5.0),
+    "posegraph.verify_ms": (dict(POSEGRAPH_S, stages_n=POSEGRAPH_N), 4.5),
+    "posegraph.solve_ms": (dict(POSEGRAPH_S, stages_n=POSEGRAPH_N), 30.0),
+    "posegraph.loops_per_keyframe": (dict(POSEGRAPH_S, stages_n=POSEGRAPH_N), 0.25),
+    "posegraph.hamming_db_roofline": (dict(kernels=HAMMING_DB), 75.0),  # the frontend's `hamming` rows not counted
 }
 
 
@@ -391,6 +411,17 @@ def test_reader_on_a_hand_built_record(name, case):
         assert read(_record()) is None
     else:
         assert read({}) is None and read(None) is None and read({"frames": 0, "stages_s": entries}) is None
+
+
+def test_loops_reader_tells_no_loop_from_no_counter():
+    """A window that closed no loop reads 0; a commit whose program kept
+    `3.3 posegraph` but not the layer's own Timers reads nothing."""
+    from vio_bench import harness
+
+    read = harness.metric_reader("posegraph.loops_per_keyframe")
+    no_loop = {k: v for k, v in POSEGRAPH_N.items() if k != "posegraph.solve"}
+    assert read(_record(stages_n=no_loop, **{k: POSEGRAPH_S[k] for k in no_loop})) == 0
+    assert read(_record(stages_n={"3.3 posegraph": 4}, **{"3.3 posegraph": 0.26})) is None
 
 
 # ---------------------------------------------------------------- on the card
