@@ -12,7 +12,8 @@ The reference okvis::Estimator's mutable problem graph becomes:
   (marginalization.marginalize_system on an evaluate() of the absorbed
   factors). Each is a cached callable under the JAX package's program-cache
   keys, so a captured form (a CUDA graph) can replace one without touching
-  the host logic.
+  the host logic: on the card the preintegration is a PreintegrationGraph
+  and each optimize variant an OptimizeGraph.
 
 Window semantics follow the reference:
 - add_states: the first frame initializes from gravity with a position+yaw
@@ -70,6 +71,7 @@ from ..solver import (
     ImuLinks,
     MargPrior,
     Observations,
+    OptimizeGraph,
     PosePriors,
     SbPriors,
     SolveDiagnostics,
@@ -384,13 +386,21 @@ class Estimator:
         tier). The reference aborts Ceres mid-solve on a wall-clock limit;
         here the time-limit knob selects a shorter-iteration variant or runs
         the chunked contract of _optimize_deadline. `LO` (max_landmarks,
-        max_observations) selects a reduced capacity tier."""
+        max_observations) selects a reduced capacity tier. On the card a
+        single-device variant is an OptimizeGraph (eager on a shape's first
+        call, recorded on its second, replayed after); on the CPU the eager
+        call; over a mesh the sharded step."""
         key = ("opt", max_iterations, self._mesh is not None, LO)
         if key not in self._jit_cache:
             cfg = self._tier_cfg(self.cfg if max_iterations is None else dataclasses.replace(
                 self.cfg, max_iterations=max_iterations), LO)
-            self._jit_cache[key] = (self._make_sharded_fn(cfg) if self._mesh is not None else
-                                    functools.partial(optimize_window, cfg, self.imu_params, self.intrinsics))
+            if self._mesh is not None:
+                fn = self._make_sharded_fn(cfg)
+            elif self.device.type == "cuda":
+                fn = OptimizeGraph(cfg, self.imu_params, self.intrinsics)
+            else:
+                fn = functools.partial(optimize_window, cfg, self.imu_params, self.intrinsics)
+            self._jit_cache[key] = fn
         return self._jit_cache[key]
 
     def _optimize_fn_for_problem(self, problem, max_iterations: Optional[int] = None):

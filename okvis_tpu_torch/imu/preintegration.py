@@ -28,6 +28,7 @@ State-error ordering (15): [dp(3), dalpha(3), dv(3), db_g(3), db_a(3)].
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -36,6 +37,7 @@ from ..device import resolve_device
 from ..kinematics import so3
 from ..kinematics.se3 import SE3
 from ..linalg import cholesky
+from ..utils import cuda_graph
 from ..utils.timing import Timer
 
 
@@ -315,12 +317,11 @@ class PreintegrationGraph:
     Eagerly, each of the P-1 intervals is ~355 small launches, each waiting
     on the host; a replay is one graph launch of the same kernels in the
     same order, so its fields equal the eager call's bit for bit. A shape's
-    first call warms up twice on the capture stream (cuBLAS and cuSOLVER
-    handles and workspaces exist before capture), then records; the
-    caller's other threads may keep launching meanwhile (thread-local
-    capture mode). Every call copies its inputs, tensors on the card, into
-    the graph's static buffers and returns clones of the static outputs, so
-    one call's fields survive the next replay. The Timers
+    first call warms up once on the capture stream, then records
+    (`utils.cuda_graph.record`); the caller's other threads may keep
+    launching meanwhile. Every call copies its inputs, tensors on the card,
+    into the graph's static buffers and returns clones of the static
+    outputs, so one call's fields survive the next replay. The Timers
     ``preintegrate.capture`` and ``preintegrate.replay`` count both."""
 
     def __init__(self, params: ImuParams):
@@ -342,18 +343,11 @@ class PreintegrationGraph:
         return PreintegratedImu(*(x.clone() for x in out))
 
     def _capture(self, args) -> tuple:
-        device = args[0].device
         inputs = tuple(x.clone() for x in args)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                preintegrate(self.params, *inputs)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            out = tuple(preintegrate(self.params, *inputs))
-        torch.cuda.current_stream(device).wait_stream(side)
-        return graph, inputs, out
+        fn = functools.partial(preintegrate, self.params)
+        cuda_graph.run(fn, *inputs, device=args[0].device)
+        graph, out = cuda_graph.record(fn, *inputs, device=args[0].device)
+        return graph, inputs, tuple(out)
 
 
 def propagate(

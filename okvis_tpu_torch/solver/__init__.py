@@ -2,6 +2,7 @@
 
 from .assemble import NormalEqs, evaluate, marg_delta_chi  # noqa: F401
 from .optimize import (  # noqa: F401
+    OptimizeGraph,
     SolveDiagnostics,
     apply_landmark_update,
     apply_update,

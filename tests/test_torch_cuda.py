@@ -623,3 +623,80 @@ def test_preintegration_graph_replays_the_eager_loop_bitwise(cuda):
     assert sorted((d.type, dtype, shape) for d, dtype, shape in graphed.graphs) == \
         [("cuda", torch.float32, (4, 32)), ("cuda", torch.float32, (8, 32))]
     assert timer_count("preintegrate.capture") - captures == 2
+
+
+def test_optimize_graph_replays_the_eager_solve_bitwise(cuda):
+    """The Estimator's window solve on the card at the benchmark's window
+    (5 keyframes + 3 frames + the new one, both cameras, L = 512, O = 2048,
+    10 LM iterations, float32) replays one CUDA graph per capacity tier:
+    over 8 frames of a synthetic flight the solve passes through all three
+    tiers, two or more successive different problems in each (three in two
+    of them, so two replays of one graph in turn), and every call's states
+    and diagnostics equal the eager optimize_window's on the same problem,
+    field by field, bit for bit; each call's diagnostics survive the next
+    replay; a tier's first call runs eagerly, its second records: one
+    `optimize.capture` per tier and one `optimize.replay` per call after
+    the first. The deadline's min-iteration program is a graph of its own
+    and its continuation stays eager."""
+    import functools
+
+    from okvis_tpu_torch.cameras.ncamera import NCameraSystem
+    from okvis_tpu_torch.datasets.synthetic import (
+        estimator_scenario, euroc_stereo_rig, feed_estimator_frame, make_landmarks, simulate_trajectory)
+    from okvis_tpu_torch.estimator import Estimator
+    from okvis_tpu_torch.imu.preintegration import ImuParams
+    from okvis_tpu_torch.solver import OptimizeGraph, optimize_window
+    from okvis_tpu_torch.utils import capture
+    from test_torch_preintegrate_links import timer_count
+
+    def rig(device):
+        specs, T_SC, intr = euroc_stereo_rig(device=device)
+        return NCameraSystem(specs=specs, T_SC=T_SC, intrinsics=intr)
+
+    traj = simulate_trajectory(duration=1.2, seed=13, motion_scale=0.5)
+    frames, init = estimator_scenario(traj, make_landmarks(traj, 700, seed=14, radius=(3.0, 8.0)), rig("cpu"), 8,
+                                      seed=13)
+    est = Estimator(rig(cuda), ImuParams.euroc(torch.float32, cuda), dtype=torch.float32, device=cuda)
+    assert (est.cfg.num_states, est.cfg.max_landmarks, est.cfg.max_observations, est.cfg.max_iterations) == \
+        (9, 512, 2048, 10)
+    captures, replays = timer_count("optimize.capture"), timer_count("optimize.replay")
+    calls = []  # (tier, graph, problem, recorded outputs, returned diagnostics)
+    capture.reset()
+    capture.enabled = True
+    try:
+        for f in frames:
+            feed_estimator_frame(est, f, init)
+            tier = est._select_tier()
+            diag = est.optimize()
+            fn, (problem,), _ = capture.programs()["optimize"]
+            calls.append((None if tier is None else (tier["L"], tier["O"]), fn, problem,
+                          capture.outputs()["optimize"], diag))
+    finally:
+        capture.enabled = False
+        capture.reset()
+    tiers = [c[0] for c in calls]
+    assert sorted(set(tiers), key=str) == [(128, 512), (256, 1024), None], tiers
+    assert all(tiers.count(t) >= 2 for t in set(tiers)), tiers
+    assert sum(tiers.count(t) >= 3 for t in set(tiers)) >= 2, tiers
+    for i, (tier, fn, problem, (states, diag), returned) in enumerate(calls):
+        assert isinstance(fn, OptimizeGraph) and len(fn.graphs) == 1
+        for name, a, b in zip(diag._fields, returned, diag):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), (i, "survives", name)
+        want_states, want_diag = optimize_window(fn.cfg, est.imu_params, est.intrinsics, problem)
+        for got, want in ((states, want_states), (diag, want_diag)):
+            for name, a, b in zip(got._fields, got, want):
+                assert (a is None) == (b is None), (i, tier, name)
+                assert a is None or (a.device.type == "cuda" and torch.equal(a, b)), (i, tier, name)
+    assert timer_count("optimize.capture") - captures == 3
+    assert timer_count("optimize.replay") - replays == len(calls) - 3 == 5
+
+    tier = est._select_tier()
+    LO = None if tier is None else (tier["L"], tier["O"])
+    for _ in range(2):
+        diag = est.optimize(time_limit=1e9, min_iterations=2, max_iterations=4)
+        assert diag.cost_history.shape == (4,)
+    assert isinstance(est._jit_cache[("opt", 2, False, LO)], OptimizeGraph)
+    cont = est._jit_cache[("opt_cont", 1, LO)]
+    assert isinstance(cont, functools.partial) and cont.func is optimize_window
+    assert timer_count("optimize.capture") - captures == 4
+    assert timer_count("optimize.replay") - replays == 6

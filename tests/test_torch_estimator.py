@@ -16,6 +16,7 @@ which import the helpers below.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -339,6 +340,32 @@ def test_program_cache_keeps_the_jax_keys():
     assert any(isinstance(k, tuple) and k[0] == "marg" for k in keys)
     assert callable(est._landmark_quality_fn) and "lmq" in est._jit_cache
     assert est._empty_pre_template().delta_q.shape == (est.cfg.max_imu_links, 4)
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_cpu_and_sharded_optimize_stay_eager(shards):
+    """The window solve is recorded as a CUDA graph only on the card: on the
+    CPU every optimize variant (tiers, the deadline's min-iteration program)
+    is the eager optimize_window partial, over a mesh the sharded step, and
+    no graph is captured or replayed."""
+    from okvis_tpu_torch.solver import OptimizeGraph, optimize_window
+    from test_torch_preintegrate_links import timer_count
+
+    est = _world_estimator(14, 5, 60)
+    if shards:
+        est.enable_distributed(n_devices=shards)
+    counts = timer_count("optimize.capture"), timer_count("optimize.replay")
+    est.optimize()
+    est.optimize(time_limit=1e9, min_iterations=2, max_iterations=3)
+    fns = [fn for k, fn in est._jit_cache.items() if isinstance(k, tuple) and k[0] == "opt"]
+    assert len(fns) == 2
+    for fn in fns:
+        assert not isinstance(fn, OptimizeGraph)
+        if shards:
+            assert fn.__qualname__.startswith("Estimator._make_sharded_fn")
+        else:
+            assert isinstance(fn, functools.partial) and fn.func is optimize_window
+    assert (timer_count("optimize.capture"), timer_count("optimize.replay")) == counts
 
 
 @pytest.mark.slow
